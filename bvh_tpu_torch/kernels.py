@@ -1,0 +1,150 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources in `csrc/` are compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
+         -std=c++17 -shared -Xcompiler -fPIC -Xptxas=-v
+
+into `_build/libbvh_kernels-<hash>.so`, keyed by a hash of the sources
+and flags, and loaded with ctypes. `-fmad=false` keeps nvcc from
+contracting `nb*inv_dir + inv_org` and the Möller–Trumbore sums into
+FMAs, which would flip hits on box and triangle edges; there is no
+`--use_fast_math`, so `1.0f/x` stays IEEE. The ptxas report (registers,
+spills) is kept beside the library as `<name>.log`.
+
+Each kernel is a `Kernel` with a launch count: the dispatcher adds one
+where it launches the kernel, and nowhere else, so a run can show that
+its main path went through the kernels. There is no fallback: without
+CUDA or nvcc, `library()` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_PKG, "_build")
+CSRC = os.path.join(_PKG, "csrc")
+CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
+                os.path.join(CSRC, "wide_treelet.cu")]
+CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
+# Stack capacities compiled into the kernels; a wrapper raises when
+# asked for a deeper stack.
+TOP_STACK_MAX = 64
+WIDE_STACK_MAX = 256
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v", f"-DBVH_TOP_STACK_MAX={TOP_STACK_MAX}",
+              f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}"]
+
+
+def build_shared_library(command, sources, hashed, stem: str) -> str:
+    """Compile `sources` with `command` into `_build/<stem>-<hash>.so`,
+    unless that file exists. The hash covers the command and every
+    file in `hashed`. The build writes a private temporary file and
+    renames it, so concurrent first uses do not see a partial library.
+    Raises RuntimeError with the compiler's output if the build fails."""
+    h = hashlib.sha256(" ".join(command).encode())
+    for path in hashed:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([*command, *sources, "-o", tmp],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {stem} failed:\n{proc.stderr}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # table, Pt, rays, R, root, robust, stack_depth, max_portals,
+    # ptid, ptent, stats, stream
+    "bvh_collect_portals": [_VP, _I, _VP, _I, _I, _I, _I, _I,
+                            _VP, _VP, _VP, _VP],
+    # table, T, P, tid, rays, L, any_hit, robust, stack_depth,
+    # out_f, out_i, stream
+    "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
+                                  _VP, _VP, _VP],
+}
+
+
+def _library_path() -> str:
+    return build_shared_library([_nvcc(), *NVCC_FLAGS], CUDA_SOURCES,
+                                CUDA_SOURCES + CUDA_HEADERS,
+                                "libbvh_kernels")
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (first use only) and load the kernels' shared library."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the kernels run only "
+                           "on a CUDA device")
+    lib = ctypes.CDLL(_library_path())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.bvh_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.bvh_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's report for the kernels' library (ptxas
+    registers, shared memory and spills per kernel)."""
+    with open(_library_path()[:-3] + ".log") as f:
+        return f.read()
+
+
+class Kernel:
+    """One entry point of the library, with its launch count."""
+
+    def __init__(self, name: str, symbol: str):
+        self.name = name
+        self.symbol = symbol
+        self.launches = 0
+
+    def launch(self, *args) -> None:
+        """Launch on PyTorch's current stream; raise if CUDA refused
+        the launch (the C entry point returns cudaGetLastError())."""
+        lib = library()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, self.symbol)(*args, stream)
+        if err != 0:
+            msg = lib.bvh_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+COLLECT = Kernel("collect_portals", "bvh_collect_portals")
+WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
+KERNELS = (COLLECT, WIDE_TREELET)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,992 @@
+"""Wide (8-ary) treelet traversal — the large-scene render path.
+
+Counterpart of `bvh_tpu.traverse.wide_treelet`. The binary tree is cut
+into treelets of at most `max_prims` primitives; the top region above
+them becomes a binary pair table, and each treelet is collapsed into
+8-wide nodes with quad leaves of 4 triangles, all in one [64, P] f32
+table per treelet (`build_wide_treelets`, host numpy copied from the
+reference, tensor outputs). A render then runs in two phases:
+
+- phase A (kernel B2, traverse/collect.py) walks the top region per
+  ray and records every portal (treelet entry) with its entry distance;
+- pair rounds: each ray's portals are sorted by entry distance, and
+  each round expands the next K portals of every ray that is still
+  ready into (ray, treelet) pairs, which kernel B1
+  (`traverse_pairs`, csrc/wide_treelet.cu) traverses 8-wide. Results
+  merge into each ray's best hit by first-j strict-min, which keeps the
+  reference's near-to-far rule (bvh.h:137-149).
+
+The render loop ports what the reference's `_render_jit` computes, not its
+TPU schedule: rays are independent, so the TPU's chunking, tail tiers,
+run padding and DMA windows only schedule work and are left out. Two-
+level scenes (a super level above the treelets, kernel B4) are not
+ported yet and raise NotImplementedError.
+
+Closest-hit results are exact; among exactly tied primitives the winner
+may differ from another implementation's, because the 8-way sorting
+network is not stable.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from bvh_tpu_torch import kernels
+from bvh_tpu_torch.core.ray import Ray
+from bvh_tpu_torch.core.types import INVALID_PRIM_ID, Bvh
+from bvh_tpu_torch.traverse.collect import (
+    collect_portals,
+    slab_inverse,
+    slab_planes,
+)
+from bvh_tpu_torch.traverse.wavefront import Hit, TraversalStats
+
+WIDTH = 8
+QUAD = 4  # prims per leaf column
+ROWS = 64  # table rows: 8*6 bounds + 8 words | 4 * (12 tri values + gpos)
+# portals expanded per ready ray and round: the reference's
+# portals_per_round for scenes of fewer than 2048 treelets
+# (wide_treelet_perf, wide_treelet.py:2064)
+PORTALS_PER_ROUND = 4
+
+
+class WideTreelets(NamedTuple):
+    """Preprocessed two-level wide scene (tensors on one device).
+
+    top_node_t: [16, Pt]     binary pair table of the top region
+                             (phase-A format); leaves are portal words
+                             (tid << 4 | 1); tid >= T names a super.
+    top_root:   int          top root word.
+    table:      [T, 64, P]   per-treelet tables: columns [0, Wn) are
+                             wide nodes (rows 0-47 child bounds, 48-55
+                             child words as f32), columns [Wn, Wn+Q)
+                             quad leaves (rows q*13..q*13+11 triangle
+                             p0|e1|e2|n, q*13+12 global prim position,
+                             -1 padding).
+    n_prims:    int          total primitive positions.
+    n_wide:     np.ndarray   [T] wide-node column count per treelet.
+    top_depth:  int          top-region depth + 1 (phase-A stack bound).
+    wide_depth: int          wide levels of the deepest treelet.
+    sup_table:  [S, 16, Ps]  per-super pair tables; S == 0 when the
+                             scene has no super level.
+    sup_depth:  int          pair-tree depth inside any super + 1.
+    """
+
+    top_node_t: torch.Tensor
+    top_root: int
+    table: torch.Tensor
+    n_prims: int
+    n_wide: np.ndarray
+    top_depth: int
+    wide_depth: int
+    sup_table: torch.Tensor
+    sup_depth: int
+
+
+def wide_treelets_from_numpy(tl, device) -> WideTreelets:
+    """Carry a treelet scene whose fields convert with np.asarray (for
+    example a `bvh_tpu` WideTreelets) across onto `device`."""
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return WideTreelets(
+        top_node_t=t(tl.top_node_t), top_root=int(tl.top_root),
+        table=t(tl.table), n_prims=int(tl.n_prims),
+        n_wide=np.asarray(tl.n_wide, np.int64),
+        top_depth=int(tl.top_depth), wide_depth=int(tl.wide_depth),
+        sup_table=t(tl.sup_table), sup_depth=int(tl.sup_depth))
+
+
+# ------------------------------------------------------- preprocessing
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _cumcount_by(keys: np.ndarray) -> np.ndarray:
+    """Rank of each element among equal keys, preserving order."""
+    if len(keys) == 0:
+        return np.zeros(0, np.int64)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    starts = np.r_[0, np.nonzero(sk[1:] != sk[:-1])[0] + 1]
+    group_start = np.repeat(starts, np.diff(np.r_[starts, len(sk)]))
+    ranks = np.arange(len(sk)) - group_start
+    out = np.empty(len(keys), np.int64)
+    out[order] = ranks
+    return out
+
+
+def _half_area_rows(rows: np.ndarray) -> np.ndarray:
+    """SAH half-area of interleaved bounds rows [k, 6]."""
+    d = rows[:, 1::2] - rows[:, 0::2]
+    return (d[:, 0] + d[:, 1]) * d[:, 2] + d[:, 0] * d[:, 1]
+
+
+def _collapse_wide(bounds, first, count, roots, tids, terminal):
+    """Collapse binary subtrees into 8-wide nodes, level-synchronously
+    over all subtrees at once: each wide node starts from one binary
+    node and repeatedly expands its largest-area non-terminal slot
+    (as `widen()` does). `terminal` marks slots where expansion stops
+    (binary leaves and small subtrees that become quad leaves).
+
+    Returns (wide_tid, wide_local, slot_node [W, 8], child_local [W, 8],
+    n_wide_per_group, n_levels); slot_node holds binary node ids (-1 =
+    empty slot), child_local the wide-local id of slots that became
+    child wide nodes (-1 otherwise)."""
+    nc = len(first)
+    areas_all = _half_area_rows(bounds)
+
+    all_tid: list[np.ndarray] = []
+    all_local: list[np.ndarray] = []
+    all_slots: list[np.ndarray] = []
+    all_child_local: list[np.ndarray] = []
+    n_wide = np.zeros(int(tids.max()) + 1 if len(tids) else 1, np.int64)
+
+    froot = np.asarray(roots, np.int64)
+    ftid = np.asarray(tids, np.int64)
+    flocal = _cumcount_by(ftid)  # roots are the first wide nodes per group
+    n_wide_acc = np.bincount(ftid, minlength=len(n_wide)).astype(np.int64)
+
+    n_levels = 0
+    while len(froot):
+        n_levels += 1
+        F = len(froot)
+        slots = np.full((F, WIDTH), -1, np.int64)
+        slots[:, 0] = froot
+        nslot = np.ones(F, np.int64)
+        for _ in range(WIDTH - 1):
+            valid = slots >= 0
+            sl = np.clip(slots, 0, nc - 1)
+            expandable = valid & ~terminal[sl]
+            a = np.where(expandable, areas_all[sl], -np.inf)
+            pick = np.argmax(a, axis=1)
+            can = (a[np.arange(F), pick] > -np.inf) & (nslot < WIDTH)
+            rows_i = np.nonzero(can)[0]
+            if len(rows_i) == 0:
+                break
+            pk = pick[rows_i]
+            b = slots[rows_i, pk]
+            slots[rows_i, pk] = first[b]
+            slots[rows_i, nslot[rows_i]] = first[b] + 1
+            nslot[rows_i] += 1
+
+        valid = slots >= 0
+        sl = np.clip(slots, 0, nc - 1)
+        is_child = valid & ~terminal[sl]
+
+        # next frontier in row-major order; local ids per group
+        rows_i, cols_i = np.nonzero(is_child)
+        kids = slots[rows_i, cols_i]
+        ktid = ftid[rows_i]
+        klocal = n_wide_acc[ktid] + _cumcount_by(ktid)
+        n_wide_acc += np.bincount(ktid, minlength=len(n_wide)).astype(np.int64)
+
+        child_local = np.full((F, WIDTH), -1, np.int64)
+        child_local[rows_i, cols_i] = klocal
+
+        all_tid.append(ftid)
+        all_local.append(flocal)
+        all_slots.append(slots)
+        all_child_local.append(child_local)
+
+        froot, ftid, flocal = kids, ktid, klocal
+
+    if all_tid:
+        wide_tid = np.concatenate(all_tid)
+        wide_local = np.concatenate(all_local)
+        slot_node = np.concatenate(all_slots, axis=0)
+        child_local = np.concatenate(all_child_local, axis=0)
+    else:
+        wide_tid = np.zeros(0, np.int64)
+        wide_local = np.zeros(0, np.int64)
+        slot_node = np.zeros((0, WIDTH), np.int64)
+        child_local = np.zeros((0, WIDTH), np.int64)
+    return wide_tid, wide_local, slot_node, child_local, n_wide_acc, n_levels
+
+
+def wide_treelet_max_prims(n_prims: int) -> int:
+    """Scene-size default treelet size (max_prims), as the reference
+    picks it."""
+    return 4096 if n_prims >= 2_000_000 else 1024
+
+
+def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
+                        max_prims: int | None = None,
+                        leaf_prims: int = 16,
+                        super_prims: int | None = None,
+                        device=None) -> WideTreelets:
+    """Cut `bvh` into treelets of <= max_prims primitives and pack the
+    wide tables (host numpy, once per tree), on `device` (default: the
+    tree's device).
+
+    `tri_flat`: [n, 12] precomputed triangles (p0|e1|e2|n), indexed by
+    prim id (or by prim position when `permuted`).
+    `leaf_prims`: subtrees with at most this many primitives collapse
+    into dense quad leaves (<= 60, so the quad count fits the word's
+    4-bit count field).
+    `super_prims`: additionally cut the top region at subtrees of
+    <= super_prims primitives; None = auto (when the top region exceeds
+    4096 nodes). The render does not take such scenes yet."""
+    if device is None:
+        device = bvh.bounds.device
+    tri_np = np.asarray(torch.as_tensor(tri_flat).cpu().numpy(), np.float32)
+    if max_prims is None:
+        max_prims = wide_treelet_max_prims(int(tri_np.shape[0]))
+    if not 1 <= leaf_prims <= 60:
+        raise ValueError(f"leaf_prims must be in [1, 60], got {leaf_prims}")
+    if bvh.dim != 3:
+        raise ValueError("the wide-treelet path is specialised for 3D")
+
+    nc = int(bvh.node_count)
+    bounds = np.asarray(bvh.bounds[:nc].cpu().numpy(), np.float32)
+    index = bvh.index[:nc].cpu().numpy().astype(np.uint64)
+    first = (index >> 4).astype(np.int64)
+    count = (index & 15).astype(np.int64)
+    prim_ids = bvh.prim_ids.cpu().numpy().astype(np.int64)
+    inner = count == 0
+
+    # ---- subtree prim counts via level-synchronous BFS ---------------
+    levels = [np.asarray([0], np.int64)]
+    frontier = levels[0]
+    while True:
+        fi = frontier[inner[frontier]]
+        if len(fi) == 0:
+            break
+        kids = np.concatenate([first[fi], first[fi] + 1])
+        levels.append(kids)
+        frontier = kids
+
+    nprims = np.where(inner, 0, count)
+    for lev in reversed(levels):
+        li = lev[inner[lev]]
+        if len(li):
+            nprims[li] = nprims[first[li]] + nprims[first[li] + 1]
+
+    # ---- treelet roots + top region ----------------------------------
+    parent = np.full(nc, -1, np.int64)
+    ii = np.nonzero(inner)[0]
+    parent[first[ii]] = ii
+    parent[first[ii] + 1] = ii
+    is_top = nprims > max_prims  # the top region (always inner nodes)
+    troot = (~is_top) & ((parent < 0) | is_top[np.clip(parent, 0, nc - 1)])
+    troot[0] = not is_top[0]
+    troots = np.nonzero(troot)[0]
+    T = len(troots)
+    tid_of_root = np.full(nc, -1, np.int64)
+    tid_of_root[troots] = np.arange(T)
+
+    # ---- collapse every treelet into wide nodes ----------------------
+    terminal = (~inner) | (nprims <= leaf_prims)
+    wide_tid, wide_local, slot_node, child_local, n_wide, wide_depth = (
+        _collapse_wide(bounds, first, count, troots, np.arange(T), terminal)
+    )
+    W = len(wide_tid)
+
+    # ---- quad leaf assignment ----------------------------------------
+    valid = slot_node >= 0
+    sl = np.clip(slot_node, 0, nc - 1)
+    is_leaf_slot = valid & terminal[sl]
+    lr, lc = np.nonzero(is_leaf_slot)
+    leaf_node = slot_node[lr, lc]
+    # quad columns are assigned per treelet in (wide local id, slot) order
+    order = np.lexsort((lc, wide_local[lr], wide_tid[lr]))
+    lr, lc = lr[order], lc[order]
+    leaf_node = leaf_node[order]
+    leaf_tid = wide_tid[lr]
+    leaf_np = nprims[leaf_node]
+    leaf_nq = -(-leaf_np // QUAD)
+    # exclusive cumsum of nq within each treelet
+    cs = np.cumsum(leaf_nq) - leaf_nq
+    if len(leaf_tid):
+        starts = np.r_[0, np.nonzero(leaf_tid[1:] != leaf_tid[:-1])[0] + 1]
+        base_of_group = cs[starts]
+        leaf_qoff = cs - np.repeat(
+            base_of_group, np.diff(np.r_[starts, len(leaf_tid)]))
+    else:
+        leaf_qoff = cs
+    n_quads = np.bincount(leaf_tid, weights=leaf_nq, minlength=T).astype(np.int64)
+
+    # every leaf slot's subtree prim positions in in-order sequence:
+    # contiguous output ranges, offsets propagated down level by level
+    out_base = np.cumsum(leaf_np) - leaf_np
+    total_out = int(leaf_np.sum())
+    offset = np.full(nc, -1, np.int64)
+    offset[leaf_node] = out_base  # leaf slots are disjoint subtrees
+    frontier = leaf_node[inner[leaf_node]]
+    while len(frontier):
+        left = first[frontier]
+        right = left + 1
+        offset[left] = offset[frontier]
+        offset[right] = offset[frontier] + nprims[left]
+        nxt = np.concatenate([left, right])
+        frontier = nxt[inner[nxt]]
+    ln = np.nonzero((offset >= 0) & ~inner)[0]
+    c = count[ln]
+    tot = int(c.sum())
+    within = np.arange(tot) - np.repeat(np.cumsum(c) - c, c)
+    out = np.empty(total_out, np.int64)
+    out[np.repeat(offset[ln], c) + within] = np.repeat(first[ln], c) + within
+    assert tot == total_out
+
+    P = int(_round_up(max(1, int((n_wide[:T] + n_quads).max())), 128))
+
+    # ---- pack per-treelet combined tables -----------------------------
+    table = np.zeros((max(T, 1), ROWS, P), np.float32)
+    big = np.float32(np.finfo(np.float32).max)
+    col_of_wide = wide_local  # node columns come first
+    vr, vc = np.nonzero(valid)
+    vslot = slot_node[vr, vc]
+    trow = wide_tid[vr]
+    ccol = col_of_wide[vr]
+    b6 = bounds[vslot]  # [k, 6]
+    d6 = np.arange(6)
+    table[trow[:, None], vc[:, None] * 6 + d6[None, :], ccol[:, None]] = b6
+    # empty child slots: empty box (never hit), word 0
+    er, ec = np.nonzero(~valid)
+    if len(er):
+        etrow = wide_tid[er]
+        ecol = col_of_wide[er]
+        empty6 = np.tile(np.asarray([big, -big, big, -big, big, -big],
+                                    np.float32), (len(er), 1))
+        table[etrow[:, None], ec[:, None] * 6 + d6[None, :],
+              ecol[:, None]] = empty6
+
+    # slot words: inner child -> (child column << 4); leaf -> quad word
+    words = np.zeros((W, WIDTH), np.int64)
+    icr, icc = np.nonzero(child_local >= 0)
+    words[icr, icc] = child_local[icr, icc] << 4
+    quad_col_base = n_wide[np.clip(leaf_tid, 0, T - 1)] if T else leaf_tid
+    assert leaf_nq.max(initial=0) <= 15
+    leaf_word = ((quad_col_base + leaf_qoff) << 4) | leaf_nq
+    words[lr, lc] = leaf_word
+    wr = np.repeat(np.arange(W), WIDTH).reshape(W, WIDTH)
+    table[wide_tid[wr.ravel()], 48 + np.tile(np.arange(WIDTH), W),
+          col_of_wide[wr.ravel()]] = words.ravel().astype(np.float32)
+
+    # quad columns: gpos rows default to -1 (padding prims never hit),
+    # then real quads overwrite
+    col_idx = np.arange(P)[None, :]
+    in_quad_region = col_idx >= n_wide[:T, None]  # [T, P]
+    gpos_rows = table[:, 12:13 * QUAD:13, :]  # view of rows 12,25,38,51
+    gpos_rows[...] = np.where(in_quad_region[:, None, :], -1.0, gpos_rows)
+    if len(leaf_tid):
+        qrep = np.repeat(np.arange(len(leaf_tid)), leaf_nq)
+        qk = _cumcount_by(qrep)  # quad index within its leaf
+        qtid = leaf_tid[qrep]
+        oidx = (out_base[qrep][:, None] + qk[:, None] * QUAD
+                + np.arange(QUAD)[None, :])
+        pvalid = oidx < (out_base[qrep] + leaf_np[qrep])[:, None]
+        ppos = out[np.clip(oidx, 0, total_out - 1)]
+        ppos_c = np.clip(ppos, 0, len(prim_ids) - 1)
+        tri_idx = ppos_c if permuted else prim_ids[ppos_c]
+        # invalid slots read a zero sentinel row inside the gather
+        tri_pad = np.concatenate(
+            [tri_np, np.zeros((1, tri_np.shape[1]), np.float32)])
+        tri_idx = np.where(pvalid, np.clip(tri_idx, 0, len(tri_np) - 1),
+                           len(tri_np))
+        geo = tri_pad[tri_idx]                                 # [q, 4, 12]
+        gpos = np.where(pvalid, ppos, -1).astype(np.float32)
+        # quad columns of a treelet are contiguous and qtid is sorted:
+        # one strided slice write per treelet
+        rows_g = (np.arange(QUAD)[:, None] * 13
+                  + np.arange(12)[None, :]).ravel()            # [48]
+        rows_p = np.arange(QUAD) * 13 + 12                     # [4]
+        geo_f = geo.reshape(-1, 48)
+        tstart = np.r_[0, np.cumsum(np.bincount(
+            qtid, minlength=T).astype(np.int64))]
+        for t in range(T):
+            a, b = tstart[t], tstart[t + 1]
+            if a == b:
+                continue
+            c0 = int(n_wide[t])
+            table[t, rows_g, c0:c0 + (b - a)] = geo_f[a:b].T
+            table[t, rows_p, c0:c0 + (b - a)] = gpos[a:b].T
+
+    # ---- super level: cut the top region ------------------------------
+    top_all = np.nonzero(is_top)[0]
+    if super_prims is None and len(top_all) > 4096:
+        super_prims = int(max_prims * max(8, round(np.sqrt(len(top_all)))))
+    use_super = (super_prims is not None and super_prims > max_prims
+                 and bool((nprims > super_prims).any()))
+    sup_table = np.zeros((0, 16, 128), np.float32)
+    sup_depth = 1
+    sid_node = np.full(nc, -1, np.int64)
+    if use_super:
+        is_stop = is_top & (nprims > super_prims)
+        is_mid = is_top & ~is_stop
+        sroot = is_mid & ((parent < 0) | is_stop[np.clip(parent, 0, nc - 1)])
+        sroots = np.nonzero(sroot)[0]
+        S = len(sroots)
+        sid_node[sroots] = np.arange(S)
+        order_nodes = [sroots]
+        frontier = sroots
+        sup_depth = 1
+        while True:
+            kids = np.concatenate([first[frontier], first[frontier] + 1])
+            par_sid = np.tile(sid_node[frontier], 2)
+            keep = is_mid[kids]
+            kids, par_sid = kids[keep], par_sid[keep]
+            if len(kids) == 0:
+                break
+            sid_node[kids] = par_sid
+            order_nodes.append(kids)
+            frontier = kids
+            sup_depth += 1
+        mid_seq = np.concatenate(order_nodes)
+        mid_sid = sid_node[mid_seq]
+        local = _cumcount_by(mid_sid)  # stable: BFS order, roots first
+        local_of = np.full(nc, -1, np.int64)
+        local_of[mid_seq] = local
+        Ps = int(_round_up(int(np.bincount(mid_sid).max()), 128))
+
+        def word_sup(nids):
+            return np.where(
+                tid_of_root[nids] >= 0,
+                (tid_of_root[nids] << 4) | 1,
+                (2 * local_of[nids] + 1) << 4,
+            ).astype(np.float32)
+
+        left = first[mid_seq]
+        sup_rows = np.zeros((len(mid_seq), 14), np.float32)
+        sup_rows[:, 0:6] = bounds[left]
+        sup_rows[:, 6:12] = bounds[left + 1]
+        sup_rows[:, 12] = word_sup(left)
+        sup_rows[:, 13] = word_sup(left + 1)
+        sup_table = np.zeros((S, 16, Ps), np.float32)
+        sup_table[mid_sid[:, None], np.arange(14)[None, :],
+                  local[:, None]] = sup_rows
+        top_nodes = np.nonzero(is_stop)[0]
+    else:
+        top_nodes = top_all
+
+    # ---- top-region binary pair table (phase-A format) ---------------
+    if len(top_nodes) == 0:
+        top_rows = np.zeros((1, 14), np.float32)
+        top_rows[0, 0:6] = bounds[0]
+        top_rows[0, 6:12:2] = big
+        top_rows[0, 7:12:2] = -big
+        top_rows[0, 12] = float(1)  # (0 << 4) | 1: portal to treelet 0
+        top_rows[0, 13] = float(1)
+        top_root = 1 << 4
+        Pt = 128
+        top_node_t = np.zeros((16, Pt), np.float32)
+        top_node_t[:14, :1] = top_rows.T
+    else:
+        top_pair = np.full(nc, -1, np.int64)
+        top_pair[top_nodes] = np.arange(len(top_nodes))
+
+        def top_word(nids):
+            # treelet portal | super portal (T + sid) | inner pair
+            w = np.where(
+                tid_of_root[nids] >= 0,
+                (tid_of_root[nids] << 4) | 1,
+                np.where(
+                    top_pair[nids] >= 0,
+                    (2 * top_pair[nids] + 1) << 4,
+                    ((T + sid_node[nids]) << 4) | 1,
+                ),
+            )
+            return w.astype(np.float32)
+
+        left = first[top_nodes]
+        top_rows = np.zeros((len(top_nodes), 14), np.float32)
+        top_rows[:, 0:6] = bounds[left]
+        top_rows[:, 6:12] = bounds[left + 1]
+        top_rows[:, 12] = top_word(left)
+        top_rows[:, 13] = top_word(left + 1)
+        top_root = int(top_word(np.asarray([0]))[0])
+        Pt = int(_round_up(len(top_nodes), 128))
+        top_node_t = np.zeros((16, Pt), np.float32)
+        top_node_t[:14, : len(top_nodes)] = top_rows.T
+
+    # exact top-region depth (the phase-A stack bound): deepest BFS
+    # level that still contains a pair-table node, +1 root margin
+    in_region = np.zeros(nc, bool)
+    in_region[top_nodes] = True
+    top_depth = 1
+    for li, lev in enumerate(levels):
+        if in_region[lev].any():
+            top_depth = li + 2
+
+    return WideTreelets(
+        top_node_t=torch.as_tensor(top_node_t, device=device),
+        top_root=top_root,
+        table=torch.as_tensor(table, device=device),
+        n_prims=len(prim_ids),
+        n_wide=np.asarray(n_wide[:T], np.int64),
+        top_depth=top_depth,
+        wide_depth=max(1, int(wide_depth)),
+        sup_table=torch.as_tensor(sup_table, device=device),
+        sup_depth=int(sup_depth) + 1,
+    )
+
+
+# ----------------------------------------------------- kernel B1, plain
+_SORT8_PAIRS = [(0, 1), (2, 3), (4, 5), (6, 7),
+                (0, 2), (1, 3), (4, 6), (5, 7),
+                (1, 2), (5, 6),
+                (0, 4), (1, 5), (2, 6), (3, 7),
+                (2, 4), (3, 5),
+                (1, 2), (3, 4), (5, 6)]
+
+
+def _sort8(keys, words):
+    """Batcher odd-even merge sort of 8 rows by key, the reference's
+    fixed 19-comparator network with a strict `>` swap
+    (wide_treelet.py:713-731). Not stable; keeping the network keeps
+    the tie order identical. keys/words: lists of 8 [B] tensors."""
+    kt, wt = list(keys), list(words)
+    for a, b in _SORT8_PAIRS:
+        swap = kt[a] > kt[b]
+        kt[a], kt[b] = (torch.where(swap, kt[b], kt[a]),
+                        torch.where(swap, kt[a], kt[b]))
+        wt[a], wt[b] = (torch.where(swap, wt[b], wt[a]),
+                        torch.where(swap, wt[a], wt[b]))
+    return kt, wt
+
+
+def _dot3(a, b):
+    """Sum of three products, left to right: (x0 + x1) + x2."""
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
+                       stack_depth: int):
+    """Plain PyTorch version of the wide traversal kernel: the state
+    machine of the reference's `_traverse_core` (wide_treelet.py:741),
+    vectorised over [rows, L] tensors, one step per iteration: leaf
+    phase (4 Möller–Trumbore tests of one quad column), then inner
+    phase (8 slab tests, `_sort8`, far-to-near pushes), then pop.
+
+    table: [T, 64, P] f32. tid: [L] int32, the treelet of each pair
+    (-1 = no pair). rays: [8, L] f32 (org, dir, tmin, tmax).
+    Results are fresh per pair (best t starts at +inf).
+    Returns out_f [3, L] f32 (t, u, v; t = +inf on a miss) and
+    out_i [4, L] int32 (prim position or -1, active steps, stack
+    high-water mark, sticky overflow flag)."""
+    L = tid.shape[0]
+    dev = rays.device
+    i64, f32 = torch.int64, torch.float32
+    P = table.shape[2]
+    org, dir_, tmin = rays[0:3], rays[3:6], rays[6]
+    tmax = rays[7].clone()
+    inv, inv_org, inv_pad, neg = slab_inverse(org, dir_, robust)
+    eps = torch.finfo(f32).eps
+    flat = table.reshape(-1)
+    base = tid.to(i64).clamp(min=0) * (ROWS * P)
+    gather_off = base[None, :] + torch.arange(ROWS, device=dev)[:, None] * P
+
+    def zeros(dtype=i64):
+        return torch.zeros(L, dtype=dtype, device=dev)
+
+    stack = torch.zeros((stack_depth, L), dtype=i64, device=dev)
+    sp, top, leaf_cur, leaf_rem = zeros(), zeros(), zeros(), zeros()
+    active = (tid >= 0) & (tmin <= tmax)
+    best_t = torch.full((L,), float("inf"), dtype=f32, device=dev)
+    best_u, best_v = zeros(f32), zeros(f32)
+    best_pos = torch.full((L,), -1, dtype=i64, device=dev)
+    asteps, hwm = zeros(), zeros()
+    ovf = zeros(torch.bool)
+    slot_key = [torch.full((L,), float(c), dtype=f32, device=dev)
+                for c in range(WIDTH)]
+    inf_row = torch.full((L,), float("inf"), dtype=f32, device=dev)
+
+    def step():
+        nonlocal stack, sp, top, leaf_cur, leaf_rem, active, tmax
+        nonlocal best_t, best_u, best_v, best_pos, asteps, hwm, ovf
+        asteps = asteps + active.to(i64)
+        in_leaf = active & (leaf_rem > 0)
+        fid = top >> 4
+        col = torch.where(in_leaf, leaf_cur, fid)
+        row = flat[gather_off + col[None, :]]                  # [64, L]
+
+        # ---- quad leaf step: 4 sequential Möller–Trumbore tests ------
+        done = zeros(torch.bool)
+        for j in range(QUAD):
+            q = row[j * 13: j * 13 + 13]
+            p0, e1, e2, nrm = q[0:3], q[3:6], q[6:9], q[9:12]
+            gpos = q[12].to(i64)
+            c = p0 - org
+            r = torch.stack([dir_[1] * c[2] - dir_[2] * c[1],
+                             dir_[2] * c[0] - dir_[0] * c[2],
+                             dir_[0] * c[1] - dir_[1] * c[0]])
+            inv_det = 1.0 / _dot3(nrm, dir_)
+            uu = _dot3(r, e2) * inv_det
+            vv = _dot3(r, e1) * inv_det
+            ww = 1.0 - uu - vv
+            tt = _dot3(nrm, c) * inv_det
+            hit = ((uu >= -eps) & (vv >= -eps) & (ww >= -eps)
+                   & (tt >= tmin) & (tt <= tmax) & in_leaf
+                   & (gpos >= 0) & ~done)
+            best_t = torch.where(hit, tt, best_t)
+            if any_hit:
+                done = done | hit
+            else:
+                tmax = torch.where(hit, tt, tmax)
+            best_u = torch.where(hit, uu, best_u)
+            best_v = torch.where(hit, vv, best_v)
+            best_pos = torch.where(hit, gpos, best_pos)
+        leaf_cur = leaf_cur + in_leaf.to(i64)
+        leaf_rem = leaf_rem - in_leaf.to(i64)
+        leaf_exhausted = in_leaf & (leaf_rem == 0) & ~done
+
+        # ---- wide inner step: 8 slab tests, sorted multi-push --------
+        in_inner = active & ~in_leaf
+        top_is_leaf = (top & 15) != 0
+        enter_leaf = in_inner & top_is_leaf
+        do_node = in_inner & ~top_is_leaf
+        keys, hits = [], []
+        for c in range(WIDTH):
+            t0, t1 = tmin, tmax
+            for d in range(3):
+                tn, tf = slab_planes(row[c * 6 + 2 * d], row[c * 6 + 2 * d + 1],
+                                     d, org, inv, inv_org, inv_pad, neg,
+                                     robust)
+                # NaN-propagating, as jnp.maximum/minimum (ROADMAP C6)
+                t0 = torch.maximum(tn, t0)
+                t1 = torch.minimum(tf, t1)
+            hit = t0 <= t1
+            hits.append(hit)
+            keys.append(torch.where(hit, slot_key[c] if any_hit else t0,
+                                    inf_row))
+        words = [row[48 + c].to(i64) for c in range(WIDTH)]
+        _, wt = _sort8(keys, words)
+        n_hits = torch.stack(hits).sum(0)
+        descend = do_node & (n_hits > 0)
+        for j in range(WIDTH - 1, 0, -1):
+            push = do_node & (n_hits > j)
+            stack = torch.where(push, torch.cat([wt[j][None], stack[:-1]]),
+                                stack)
+            ovf = ovf | (push & (sp >= stack_depth))
+            sp = torch.where(push, (sp + 1).clamp(max=stack_depth), sp)
+
+        leaf_cur = torch.where(enter_leaf, fid, leaf_cur)
+        leaf_rem = torch.where(enter_leaf, top & 15, leaf_rem)
+        need_pop = (do_node & ~descend) | leaf_exhausted
+        can_pop = need_pop & (sp > 0)
+        sp = sp - can_pop.to(i64)
+        popped = stack[0]
+        stack = torch.where(can_pop, torch.cat([stack[1:], stack[:1] * 0]),
+                            stack)
+        top = torch.where(descend, wt[0], torch.where(can_pop, popped, top))
+        active = active & ~done & ~(need_pop & ~can_pop)
+        hwm = torch.maximum(hwm, sp)
+
+    while bool(active.any()):
+        for _ in range(4):  # a step is a no-op once inactive: sync less
+            step()
+    out_f = torch.stack([best_t, best_u, best_v])
+    out_i = torch.stack([best_pos, asteps, hwm, ovf.to(i64)]).to(torch.int32)
+    return out_f, out_i
+
+
+def traverse_pairs(table, tid, rays, *, any_hit: bool, robust: bool,
+                   stack_depth: int):
+    """Wide treelet traversal of (ray, treelet) pairs: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Same inputs
+    and outputs as `traverse_pairs_ref`."""
+    if rays.device.type == "cpu":
+        return traverse_pairs_ref(table, tid, rays, any_hit=any_hit,
+                                  robust=robust, stack_depth=stack_depth)
+    if rays.device.type != "cuda":
+        raise ValueError(f"traverse_pairs: unsupported device {rays.device}")
+    if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
+        raise ValueError(f"traverse_pairs: stack depth {stack_depth} "
+                         f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
+    L = tid.shape[0]
+    if (table.dtype != torch.float32 or table.dim() != 3
+            or table.shape[1] != ROWS or not table.is_contiguous()
+            or table.device != rays.device):
+        raise ValueError("traverse_pairs: table must be a contiguous "
+                         f"[T, {ROWS}, P] float32 tensor on {rays.device}")
+    if (tid.dtype != torch.int32 or tid.dim() != 1 or not tid.is_contiguous()
+            or tid.device != rays.device):
+        raise ValueError("traverse_pairs: tid must be a contiguous [L] "
+                         f"int32 tensor on {rays.device}")
+    if (rays.dtype != torch.float32 or tuple(rays.shape) != (8, L)
+            or not rays.is_contiguous()):
+        raise ValueError("traverse_pairs: rays must be a contiguous [8, L] "
+                         "float32 tensor")
+    out_f = torch.empty((3, L), dtype=torch.float32, device=rays.device)
+    out_i = torch.empty((4, L), dtype=torch.int32, device=rays.device)
+    kernels.WIDE_TREELET.launch(
+        table.data_ptr(), table.shape[0], table.shape[2], tid.data_ptr(),
+        rays.data_ptr(), L, int(any_hit), int(robust), stack_depth,
+        out_f.data_ptr(), out_i.data_ptr())
+    return out_f, out_i
+
+
+# ------------------------------------------------------------ the render
+def _up_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def wide_treelet_caps(tl: WideTreelets, portals_per_round: int = 4) -> dict:
+    """Scene-derived starting values of the capacity knobs, as the
+    reference derives them (wide_treelet.py:2016-2044): a ray crossing
+    a scene cut into T similar treelets enters O(T^(1/3)) of them. The
+    render checks the exact overflow flags and raises the named cap."""
+    T = int(tl.table.shape[0])
+    S = int(tl.sup_table.shape[0])
+    max_portals = max(32, min(512, _up_pow2(5 * round(T ** (1.0 / 3.0)))))
+    if S > 0:
+        mps = max(16, min(256, _up_pow2(max(S // 4,
+                                            6 * round(S ** (1.0 / 3.0))))))
+        per_super = max(1, T // S)
+        max_new = max(16, min(256, _up_pow2(per_super // 4)))
+    else:
+        mps, max_new = 16, 16
+    max_rounds = max(64, 32 * max_portals // max(1, portals_per_round))
+    return dict(max_portals=max_portals, max_rounds=max_rounds,
+                mps=mps, max_new=max_new)
+
+
+def octants(rays8) -> torch.Tensor:
+    """Direction octant (sign bits x + 2y + 4z) of [8, R] packed rays."""
+    neg = torch.signbit(rays8[3:6]).to(torch.int64)
+    return neg[0] + 2 * neg[1] + 4 * neg[2]
+
+
+def pack_rays(rays: Ray) -> torch.Tensor:
+    """[8, R] f32 rows: org (0-2), dir (3-5), tmin (6), tmax (7)."""
+    return torch.cat([rays.org.T, rays.dir.T, rays.tmin[None],
+                      rays.tmax[None]]).to(torch.float32).contiguous()
+
+
+class Portals(NamedTuple):
+    """Phase-A result over the rays that entered any treelet box."""
+
+    sel: torch.Tensor      # [Rc] ray indices with at least one portal
+    tid: torch.Tensor      # [MP, Rc] int64 portals, ascending entry t
+    tent: torch.Tensor     # [MP, Rc] f32 entry t (+inf unused)
+    cnt: torch.Tensor      # [R] int32 portal count (past the cap)
+    top_hwm: int           # phase-A stack high-water mark
+    top_ovf: bool          # phase-A stack overflow
+
+
+def collect_and_sort(tl: WideTreelets, packed, *, robust: bool,
+                     top_stack: int, max_portals: int,
+                     collect=collect_portals) -> Portals:
+    """Phase A, then each ray's portals sorted ascending by entry t
+    (wide_treelet.py:1892) over the rays that recorded any (:1536).
+    torch's stable sort orders equal entry t by record order, where
+    the reference's sort is not declared stable; only ties differ."""
+    ptid, ptent, stats = collect(tl.top_node_t, packed, tl.top_root,
+                                 robust=robust, stack_depth=top_stack,
+                                 max_portals=max_portals)
+    cnt = stats[0]
+    sel = torch.nonzero(cnt > 0).squeeze(1)
+    tent, order = torch.sort(ptent[:, sel], dim=0, stable=True)
+    tid = torch.gather(ptid[:, sel].to(torch.int64), 0, order)
+    return Portals(sel, tid, tent, cnt, int(stats[1].max()) if stats.numel()
+                   else 0, bool(stats[2].any()))
+
+
+def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
+                k: int):
+    """The (ray, treelet) pairs of one round: portals cur..cur+k-1 of
+    each ready ray `rsel` that are still live (:1726-1738), ordered by
+    treelet id * 8 + octant (:1599) for coherence only.
+    Returns (validk [k, Rr], pk, pr, tid [L] int32, rays [8, L])."""
+    mp = portals.tid.shape[0]
+    idx = cur[rsel][None, :] + torch.arange(k, device=cur.device)[:, None]
+    inb = idx < mp
+    idxc = idx.clamp(max=mp - 1)
+    wtid = torch.where(inb, portals.tid[:, rsel].gather(0, idxc), -1)
+    wtt = torch.where(inb, portals.tent[:, rsel].gather(0, idxc),
+                      float("inf"))
+    validk = (wtid >= 0) & (wtt <= tmax[rsel][None, :]) & live[rsel][None, :]
+    kk, rr = torch.nonzero(validk, as_tuple=True)
+    key = wtid[kk, rr] * WIDTH + octant[rsel][rr]
+    perm = torch.sort(key, stable=True).indices
+    pk, pr = kk[perm], rr[perm]
+    ray = rsel[pr]
+    prays = rays_c[:, ray]
+    prays[7] = tmax[ray]  # pairs carry the ray's current tmax
+    return validk, pk, pr, wtid[pk, pr].to(torch.int32), prays.contiguous()
+
+
+def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
+            stack_depth, max_portals, max_rounds, k, collect, traverse):
+    """One render at fixed capacities. Returns the per-ray best hit
+    (t, u, v, pos), phase-A counts, the round count and the overflow
+    observations the caller checks."""
+    R = packed.shape[1]
+    dev = packed.device
+    f32, i64 = torch.float32, torch.int64
+    portals = collect_and_sort(tl, packed, robust=robust, top_stack=top_stack,
+                               max_portals=max_portals, collect=collect)
+    diag = dict(max_cnt=int(portals.cnt.max()) if R else 0,
+                top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
+                stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
+                pending=False)
+    out_t = torch.full((R,), float("inf"), dtype=f32, device=dev)
+    out_u = torch.zeros(R, dtype=f32, device=dev)
+    out_v = torch.zeros(R, dtype=f32, device=dev)
+    out_pos = torch.full((R,), -1, dtype=i64, device=dev)
+    if diag["max_cnt"] > max_portals or diag["top_ovf"]:
+        return out_t, out_u, out_v, out_pos, portals.cnt, diag
+
+    sel = portals.sel
+    Rc = sel.numel()
+    rays_c = packed[:, sel]
+    octant = octants(rays_c)
+    tmax = rays_c[7].clone()
+    bt = torch.full((Rc,), float("inf"), dtype=f32, device=dev)
+    bu = torch.zeros(Rc, dtype=f32, device=dev)
+    bv = torch.zeros(Rc, dtype=f32, device=dev)
+    bpos = torch.full((Rc,), -1, dtype=i64, device=dev)
+    cur = torch.zeros(Rc, dtype=i64, device=dev)
+    lanes = torch.arange(Rc, device=dev)
+    while True:
+        # ready <=> the portal at the cursor is live (entries ascend,
+        # tmax only shrinks), :1551-1561
+        live = bpos < 0 if any_hit else torch.ones_like(cur, dtype=torch.bool)
+        curc = cur.clamp(max=max_portals - 1)[None, :]
+        p_tid = torch.where(cur < max_portals,
+                            portals.tid.gather(0, curc)[0], -1)
+        p_t = portals.tent.gather(0, curc)[0]
+        ready = live & (p_tid >= 0) & (p_t <= tmax)
+        rsel = lanes[ready]
+        if rsel.numel() == 0:
+            break
+        if diag["rounds"] == max_rounds:
+            diag["pending"] = True
+            break
+        validk, pk, pr, ptid, prays = round_pairs(
+            portals, cur, tmax, live, rays_c, octant, rsel, k)
+        out_f, out_i = traverse(tl.table, ptid, prays, any_hit=any_hit,
+                                robust=robust, stack_depth=stack_depth)
+        diag["rounds"] += 1
+        diag["pairs"] += ptid.numel()
+        if ptid.numel():
+            diag["stack_hwm"] = max(diag["stack_hwm"], int(out_i[2].max()))
+            diag["stack_ovf"] |= bool(out_i[3].any())
+        Rr = rsel.numel()
+        res_t = torch.full((k, Rr), float("inf"), dtype=f32, device=dev)
+        res_u = torch.zeros((k, Rr), dtype=f32, device=dev)
+        res_v = torch.zeros((k, Rr), dtype=f32, device=dev)
+        res_pos = torch.full((k, Rr), -1, dtype=i64, device=dev)
+        res_t[pk, pr] = out_f[0]
+        res_u[pk, pr] = out_f[1]
+        res_v[pk, pr] = out_f[2]
+        res_pos[pk, pr] = out_i[0].to(i64)
+        # first-j strict-min (closest) / first-j hit (any), :1702-1724
+        n_bt, n_bu, n_bv, n_pos = bt[rsel], bu[rsel], bv[rsel], bpos[rsel]
+        for j in range(k):
+            if any_hit:
+                upd = validk[j] & (res_pos[j] >= 0) & (n_pos < 0)
+            else:
+                upd = validk[j] & (res_t[j] < n_bt)
+            n_bt = torch.where(upd, res_t[j], n_bt)
+            n_bu = torch.where(upd, res_u[j], n_bu)
+            n_bv = torch.where(upd, res_v[j], n_bv)
+            n_pos = torch.where(upd, res_pos[j], n_pos)
+        if not any_hit:
+            tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
+        bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
+        cur[rsel] += k
+
+    out_t[sel], out_u[sel], out_v[sel], out_pos[sel] = bt, bu, bv, bpos
+    return out_t, out_u, out_v, out_pos, portals.cnt, diag
+
+
+def wide_treelet_intersect_tris(
+    tl: WideTreelets,
+    rays: Ray,
+    prim_ids=None,
+    *,
+    any_hit: bool = False,
+    robust: bool = False,
+    top_stack: int | None = None,
+    stack_depth: int | None = None,
+    max_portals: int | None = None,
+    max_rounds: int | None = None,
+    auto_caps: bool = True,
+    return_diag: bool = False,
+) -> Hit:
+    """Closest/any-hit over a wide-treelet scene (see module docstring),
+    on the device of `rays`.
+
+    `prim_ids`: the tree's permutation, to translate hit positions to
+    primitive ids (None when primitives were pre-permuted).
+    Capacities default to the reference's: top_stack = top_depth + 1,
+    stack_depth = 7 * wide_depth + 8, max_portals and max_rounds from
+    `wide_treelet_caps`. Every capacity has an exact overflow flag;
+    with `auto_caps` an overflowed run is discarded and re-run with the
+    named cap doubled (max_portals jumps to the reported need),
+    otherwise it raises. Results of an overflowed run are never
+    returned.
+    `return_diag`: also return a dict of rounds, pairs, stack
+    high-water marks and the caps used."""
+    return _intersect(tl, rays, prim_ids, collect_portals, traverse_pairs,
+                      any_hit=any_hit, robust=robust, top_stack=top_stack,
+                      stack_depth=stack_depth, max_portals=max_portals,
+                      max_rounds=max_rounds, auto_caps=auto_caps,
+                      return_diag=return_diag)
+
+
+def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
+               robust=False, top_stack=None, stack_depth=None,
+               max_portals=None, max_rounds=None, auto_caps=True,
+               return_diag=False):
+    """`wide_treelet_intersect_tris` with phase A and the pair traversal
+    given as `collect` and `traverse`: the kernels' dispatchers, or
+    their plain versions (`collect_portals_ref`, `traverse_pairs_ref`)
+    to run the render without the kernels on any device."""
+    if tl.sup_table.shape[0] > 0:
+        raise NotImplementedError(
+            "two-level treelet scenes (a super level, phase A2 = kernel B4) "
+            "are not ported yet")
+    R = rays.tmin.shape[0]
+    auto = wide_treelet_caps(tl, PORTALS_PER_ROUND)
+    caps = dict(
+        top_stack=top_stack if top_stack is not None else tl.top_depth + 1,
+        stack_depth=(stack_depth if stack_depth is not None
+                     else 7 * tl.wide_depth + 8),
+        max_portals=(max_portals if max_portals is not None
+                     else auto["max_portals"]),
+        max_rounds=(max_rounds if max_rounds is not None
+                    else auto["max_rounds"]),
+    )
+    packed = pack_rays(rays)
+    for attempt in range(8):
+        bt, bu, bv, pos, cnt, diag = _render(
+            tl, packed, any_hit=any_hit, robust=robust,
+            top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
+            max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
+            k=PORTALS_PER_ROUND, collect=collect, traverse=traverse)
+        bumps = {}
+        if diag["max_cnt"] > caps["max_portals"]:
+            bumps["max_portals"] = _up_pow2(diag["max_cnt"])
+        if diag["top_ovf"]:
+            bumps["top_stack"] = 2 * caps["top_stack"]
+        if diag["stack_ovf"]:
+            bumps["stack_depth"] = 2 * caps["stack_depth"]
+        if diag["pending"]:
+            bumps["max_rounds"] = 2 * caps["max_rounds"]
+        if not bumps:
+            break
+        if not auto_caps or attempt == 7:
+            raise ValueError(f"wide-treelet capacity overflow: {bumps} "
+                             f"needed with caps {caps}")
+        caps.update(bumps)
+
+    missed = pos < 0
+    prim_pos = torch.where(missed, INVALID_PRIM_ID, pos)
+    if prim_ids is not None:
+        ids = torch.as_tensor(prim_ids, device=pos.device).to(torch.int64)
+        prim_id = torch.where(missed, INVALID_PRIM_ID,
+                              ids[pos.clamp(0, ids.shape[0] - 1)])
+    else:
+        prim_id = prim_pos
+    hit = Hit(t=torch.where(missed, float("inf"), bt), u=bu, v=bv,
+              prim_pos=prim_pos, prim_id=prim_id,
+              stats=TraversalStats(cnt.to(torch.int64),
+                                   torch.full_like(pos, diag["rounds"])))
+    if return_diag:
+        return hit, dict(diag, caps=caps)
+    return hit
