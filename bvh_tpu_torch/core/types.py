@@ -146,4 +146,4 @@ def make_node_bounds_row(bbox_min, bbox_max):
     """Interleave (min, max) vectors into a `2*dim` bounds row
     (reference: node.h:52-57)."""
     return torch.stack([bbox_min, bbox_max], dim=-1).reshape(
-        *bbox_min.shape[:-1], -1)
+        *bbox_min.shape[:-1], 2 * bbox_min.shape[-1])

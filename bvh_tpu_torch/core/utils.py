@@ -53,3 +53,40 @@ def safe_inverse(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() <= finfo.eps,
                        torch.where(torch.signbit(x), -big, big),
                        1.0 / x)
+
+
+def fast_mul_add(a, b, c):
+    """a * b + c, with the product and the sum each rounded (reference:
+    utils.h:73-81). Every multiply-add of the build that XLA's CPU
+    backend contracts into an FMA goes through here, so that a test can
+    give the plain versions that rounding (ROADMAP C5); the CUDA
+    kernels round the same way as this function (-fmad=false)."""
+    return a * b + c
+
+
+def split_bits(x: torch.Tensor, dim: int = 3, bits: int = 32) -> torch.Tensor:
+    """Space the low bits of `x` with `dim - 1` zeros between them
+    (reference: utils.h:103-114), as on a `bits`-wide unsigned integer.
+    `x` is an int64 tensor holding the unsigned value (torch's CPU build
+    has no uint32 shift)."""
+    if dim == 1:
+        return x
+    out = torch.zeros_like(x)
+    for i in range(bits // dim):
+        out = out | (((x >> i) & 1) << (i * dim))
+    return out & ((1 << bits) - 1)
+
+
+def morton_encode(coords: torch.Tensor, dim: int | None = None,
+                  bits: int = 32) -> torch.Tensor:
+    """Morton code of integer grid coordinates [..., dim] (x in the
+    lowest bit; reference: utils.h:117-120), as on a `bits`-wide
+    unsigned integer, carried in int64."""
+    if dim is None:
+        dim = coords.shape[-1]
+    out = torch.zeros(coords.shape[:-1], dtype=torch.int64,
+                      device=coords.device)
+    for axis in range(dim):
+        out = out | (split_bits(coords[..., axis].to(torch.int64), dim, bits)
+                     << axis)
+    return out & ((1 << bits) - 1)

@@ -5,8 +5,9 @@ The sources in `csrc/` are compiled at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
          -std=c++17 -shared -Xcompiler -fPIC -Xptxas=-v
 
-into `_build/libbvh_kernels-<hash>.so`, keyed by a hash of the sources
-and flags, and loaded with ctypes. `-fmad=false` keeps nvcc from
+(one nvcc process per source, all started together), then linked into
+`_build/libbvh_kernels-<hash>.so`, keyed by a hash of the sources and
+flags, and loaded with ctypes. `-fmad=false` keeps nvcc from
 contracting `nb*inv_dir + inv_org` and the Möller–Trumbore sums into
 FMAs, which would flip hits on box and triangle edges; there is no
 `--use_fast_math`, so `1.0f/x` stays IEEE. The ptxas report (registers,
@@ -33,7 +34,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
-                os.path.join(CSRC, "wide_treelet.cu")]
+                os.path.join(CSRC, "wide_treelet.cu"),
+                os.path.join(CSRC, "group_build.cu")]
 CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
 # Stack capacities compiled into the kernels; a wrapper raises when
 # asked for a deeper stack.
@@ -48,8 +50,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 def build_shared_library(command, sources, hashed, stem: str) -> str:
     """Compile `sources` with `command` into `_build/<stem>-<hash>.so`,
     unless that file exists. The hash covers the command and every
-    file in `hashed`. The build writes a private temporary file and
-    renames it, so concurrent first uses do not see a partial library.
+    file in `hashed`. Each source compiles to an object in a process of
+    its own, all started together, and the objects are then linked.
+    The build writes private temporary files and renames the library,
+    so concurrent first uses do not see a partial one.
     Raises RuntimeError with the compiler's output if the build fails."""
     h = hashlib.sha256(" ".join(command).encode())
     for path in hashed:
@@ -60,12 +64,30 @@ def build_shared_library(command, sources, hashed, stem: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([*command, *sources, "-o", tmp],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {stem} failed:\n{proc.stderr}")
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    compile_cmd = [c for c in command if c != "-shared"]
+    procs = [subprocess.Popen([*compile_cmd, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    log = ""
+    try:
+        for p in procs:
+            o, e = p.communicate()
+            log += o + e
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"building {stem} failed:\n{log}")
+        proc = subprocess.run([*command, *objs, "-o", tmp],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {stem} failed:\n{log}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(log)
     os.replace(tmp, out)
     return out
 
@@ -78,7 +100,7 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # table, Pt, rays, R, root, robust, stack_depth, max_portals,
     # ptid, ptent, stats, stream
@@ -88,6 +110,11 @@ _SIGNATURES = {
     # out_f, out_i, stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
                                   _VP, _VP, _VP],
+    # pf, sizes, G, P, NCAP, min_leaf, max_leaf, log_cluster, cost_ratio,
+    # nbf, nbi, src, cnt, stream
+    "bvh_group_build": [_VP, _VP, _I, _I, _I, _I, _I, _I, _F,
+                        _VP, _VP, _VP, _VP, _VP],
+    "bvh_group_build_max_p": [ctypes.POINTER(_I)],
 }
 
 
@@ -111,6 +138,16 @@ def library() -> ctypes.CDLL:
     lib.bvh_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bvh_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def group_build_max_p() -> int:
+    """The largest group capacity P whose shared memory fits one block
+    of the group build kernel on the current device."""
+    out = _I(0)
+    err = library().bvh_group_build_max_p(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"bvh_group_build_max_p: CUDA error {err}")
+    return out.value
 
 
 def build_log() -> str:
@@ -142,7 +179,8 @@ class Kernel:
 
 COLLECT = Kernel("collect_portals", "bvh_collect_portals")
 WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
-KERNELS = (COLLECT, WIDE_TREELET)
+GROUP_BUILD = Kernel("group_build", "bvh_group_build")
+KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD)
 
 
 def reset_launch_counts() -> None:
