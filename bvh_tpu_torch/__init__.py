@@ -3,9 +3,11 @@
 The package mirrors `bvh_tpu`'s layout (core, geom, io, api, cli,
 build, traverse), so each module's counterpart is found under the same
 name. Plain tensor code is PyTorch; the hot kernels (the per-group
-binned-SAH build, and the wide-treelet render's phase-A portal collect
-and 8-wide treelet traversal) are hand-written CUDA under `csrc/`,
-built at first use by `kernels.py`.
+binned-SAH build; the wide-treelet render's phase-A portal collect, its
+phase-A2 super expansion and 8-wide treelet traversal; the single-launch
+binary traversal) are hand-written CUDA under `csrc/`, built at first
+use by `kernels.py`. The entry points (`cli.benchmark`, `api.flat`) run
+on the card unless the caller names another device.
 Every kernel has a plain PyTorch version beside it, which runs for
 tensors on the CPU.
 

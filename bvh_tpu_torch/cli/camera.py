@@ -21,9 +21,10 @@ def camera_basis(dir, up):  # noqa: A002 - matches reference
 
 
 def primary_rays(eye, dir, up, width: int, height: int,  # noqa: A002
-                 dtype=torch.float32, device="cpu") -> Ray:
+                 dtype=torch.float32, device="cuda") -> Ray:
     """Rays through pixel (x, y), row-major in y then x:
-    dir + u*right + v*up' with u = 2x/W - 1, v = 2y/H - 1."""
+    dir + u*right + v*up' with u = 2x/W - 1, v = 2y/H - 1, on `device`
+    (the card unless the caller names another)."""
     d, r, u = camera_basis(dir, up)
     x = np.arange(width, dtype=np.float64)
     y = np.arange(height, dtype=np.float64)

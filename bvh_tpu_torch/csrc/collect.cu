@@ -1,6 +1,7 @@
-// Phase-A portal collect (kernel B2) for Hopper.
+// Binary portal collect for Hopper: phase A (kernel B2) and phase A2
+// (kernel B4).
 //
-// Replaces the Pallas kernel `collect_kernel`
+// B2 replaces the Pallas kernel `collect_kernel`
 // (bvh_tpu/traverse/collect.py:25), launched from `_render_jit`
 // (bvh_tpu/traverse/wide_treelet.py:1505-1532). For each ray it walks
 // the binary top region of the tree, stored as a [16, Pt] f32 pair
@@ -10,23 +11,36 @@
 // entry distance, up to `max_portals`. The count goes on counting past
 // the cap so that an overflow is exact.
 //
-// What bounds it on the card: latency of dependent loads. A step reads
-// one 14-float column of a table that is a few tens of KB at sponza
-// scale and stays in L1/L2, and does two slab tests; a ray takes tens
-// of such steps, each waiting on the last. The design gives each ray
-// one thread and relies on many resident warps to hide that latency;
-// portal records are written at [k, r], so writes coalesce across the
-// threads of a warp. The TPU version fetched the column with a one-hot
-// matrix product because Mosaic cannot gather per lane; here a column
-// is an ordinary load.
+// B4 replaces the Pallas kernels `_sup_kernel_pair`/`_sup_kernel_dma`
+// (bvh_tpu/traverse/wide_treelet.py:1283-1330, launched from
+// `_phase_a2` :1333), whose body is `_collect_core` (:1158): the same
+// walk per (ray, super) pair, over that super's mid-region pair table
+// `sup_table[sid]` [16, Ps] from root word 1 << 4, recording treelet
+// portals up to `max_new`. The TPU version scheduled pairs in 128-lane
+// runs per super with DMA windows; here one thread takes one pair and
+// reads its super's table by index.
+//
+// What bounds both on the card: latency of dependent loads. A step reads
+// one 14-float column of a table that is a few tens of KB and stays in
+// L1/L2, and does two slab tests; a ray takes tens of such steps, each
+// waiting on the last. The design gives each ray or pair one thread and
+// relies on many resident warps to hide that latency; records are
+// written at [k, r], so writes coalesce across the threads of a warp.
+// The TPU version fetched the column with a one-hot matrix product
+// because Mosaic cannot gather per lane; here a column is an ordinary
+// load.
 //
 // Exactness: the slab arithmetic, the robust/fast inverse and its
-// 2-ulp pad, NaN-swallowing robust_max/min, near-first descent with
-// `swap = tl0 > tr0`, and the root-is-portal case follow the reference
-// step for step. Unlike the reference (which does not clamp `sp` on a
-// push, ROADMAP C3), a push onto a full stack drops the bottom entry,
-// keeps `sp` at the capacity and sets a sticky overflow flag; the two
-// agree whenever the stack is sized top_depth + 1.
+// 2-ulp pad, near-first descent with `swap = tl0 > tr0`, and the
+// root-is-portal case follow the references step for step. The planes
+// fold with each reference's own min/max: NaN-swallowing
+// robust_max/min in B2 (collect.py:117-118), NaN-propagating
+// jnp.maximum/minimum in B4 (wide_treelet.py:1200-1201, ROADMAP C6, C10).
+// Unlike the references (B2 does not clamp `sp` on a push, ROADMAP C3;
+// B4 clamps it silently, C9), a push onto a full stack drops the
+// bottom entry, keeps `sp` at the capacity and sets a sticky overflow
+// flag; they agree whenever the stack is sized to the region's depth
+// + 1.
 
 #include "slab.cuh"
 
@@ -34,6 +48,7 @@ namespace {
 
 constexpr int kTopStackMax = BVH_TOP_STACK_MAX;  // set by kernels.py
 
+template <bool NanMinMax>
 __device__ __forceinline__ void slab(const bvh::RayInv& r, const float* b,
                                      float tmin, float tmax, bool robust,
                                      float& t0, float& t1) {
@@ -43,19 +58,21 @@ __device__ __forceinline__ void slab(const bvh::RayInv& r, const float* b,
     for (int i = 0; i < 3; ++i) {
         float tn, tf;
         bvh::slab_axis(r, i, b[2 * i], b[2 * i + 1], robust, tn, tf);
-        t0 = bvh::robust_max(tn, t0);
-        t1 = bvh::robust_min(tf, t1);
+        t0 = NanMinMax ? bvh::nan_max(tn, t0) : bvh::robust_max(tn, t0);
+        t1 = NanMinMax ? bvh::nan_min(tf, t1) : bvh::robust_min(tf, t1);
     }
 }
 
-__global__ void collect_kernel(const float* __restrict__ table, int Pt,
-                               const float* __restrict__ rays, int R,
-                               int root_word, bool robust, int stack_depth,
-                               int max_portals, int* __restrict__ ptid,
-                               float* __restrict__ ptent,
-                               int* __restrict__ stats) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
+// The walk of one ray (lane r of R) over one pair table; records go to
+// ptid/ptent [max_portals, R], stats [3, R] (count, stack high-water
+// mark, overflow).
+template <bool NanMinMax>
+__device__ void collect_walk(const float* __restrict__ table, int Pt,
+                             const float* __restrict__ rays, int R, int r,
+                             int root_word, bool robust, int stack_depth,
+                             int max_portals, int* __restrict__ ptid,
+                             float* __restrict__ ptent,
+                             int* __restrict__ stats) {
     float o[3], d[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -94,8 +111,8 @@ __global__ void collect_kernel(const float* __restrict__ table, int Pt,
 #pragma unroll
             for (int i = 0; i < 14; ++i) row[i] = __ldg(table + i * Pt + col);
             float tl0, tl1, tr0, tr1;
-            slab(ray, row, tmin, tmax, robust, tl0, tl1);
-            slab(ray, row + 6, tmin, tmax, robust, tr0, tr1);
+            slab<NanMinMax>(ray, row, tmin, tmax, robust, tl0, tl1);
+            slab<NanMinMax>(ray, row + 6, tmin, tmax, robust, tr0, tr1);
             const int idx_l = static_cast<int>(row[12]);
             const int idx_r = static_cast<int>(row[13]);
             const bool hit_l = tl0 <= tl1, hit_r = tr0 <= tr1;
@@ -133,6 +150,32 @@ __global__ void collect_kernel(const float* __restrict__ table, int Pt,
     stats[2 * R + r] = ovf;
 }
 
+__global__ void collect_kernel(const float* __restrict__ table, int Pt,
+                               const float* __restrict__ rays, int R,
+                               int root_word, bool robust, int stack_depth,
+                               int max_portals, int* __restrict__ ptid,
+                               float* __restrict__ ptent,
+                               int* __restrict__ stats) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= R) return;
+    collect_walk<false>(table, Pt, rays, R, r, root_word, robust,
+                        stack_depth, max_portals, ptid, ptent, stats);
+}
+
+__global__ void collect_pairs_kernel(const float* __restrict__ sup_table,
+                                     int Ps, const int* __restrict__ sid,
+                                     const float* __restrict__ rays, int L,
+                                     bool robust, int stack_depth,
+                                     int max_new, int* __restrict__ ntid,
+                                     float* __restrict__ nt,
+                                     int* __restrict__ stats) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= L) return;
+    const float* table = sup_table + static_cast<size_t>(sid[r]) * 16 * Ps;
+    collect_walk<true>(table, Ps, rays, L, r, 1 << 4, robust, stack_depth,
+                       max_new, ntid, nt, stats);
+}
+
 }  // namespace
 
 extern "C" const char* bvh_cuda_error_string(int err) {
@@ -154,6 +197,25 @@ extern "C" int bvh_collect_portals(const float* table, int Pt,
                          static_cast<cudaStream_t>(stream)>>>(
             table, Pt, rays, R, root_word, robust != 0, stack_depth,
             max_portals, ptid, ptent, stats);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// sup_table [S, 16, Ps] f32; sid [L] i32, the super of each pair; rays
+// [8, L] f32; outputs ntid [max_new, L] i32, nt [max_new, L] f32 and
+// stats [3, L] i32 (recordable-portal count, stack high-water mark,
+// overflow). Returns cudaGetLastError() after the launch.
+extern "C" int bvh_collect_super_pairs(const float* sup_table, int Ps,
+                                       const int* sid, const float* rays,
+                                       int L, int robust, int stack_depth,
+                                       int max_new, int* ntid, float* nt,
+                                       int* stats, void* stream) {
+    if (L > 0) {
+        const int block = 128;
+        collect_pairs_kernel<<<(L + block - 1) / block, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+            sup_table, Ps, sid, rays, L, robust != 0, stack_depth, max_new,
+            ntid, nt, stats);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,11 @@
 
 Counterpart of `bvh_tpu.geom.tri` (reference: src/bvh/v2/tri.h). Every
 op is separately rounded (torch does not contract a*b+c into an FMA),
-which is the rounding the wide-treelet tables are built with.
+which is the rounding the wide-treelet tables are built with. The
+intersection test's products go through `core.utils.fast_mul_add`
+where XLA's CPU backend contracts them inside compiled code (ROADMAP
+C5): a cross-product term a*b - c*d as fma(a, b, -(c*d)), and a dot
+product as fma(x2, y2, fma(x1, y1, x0*y0)).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from bvh_tpu_torch.core import bbox as bbox_ops
+from bvh_tpu_torch.core import utils
 from bvh_tpu_torch.core.ray import Ray
 
 
@@ -31,6 +36,26 @@ def dot(a, b):
     """Three-term dot product summed left to right, (x0 + x1) + x2."""
     p = a * b
     return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def cross_mad(a, b):
+    """`cross` with each term rounded as fma(a, b, -(c*d))."""
+    mad = utils.fast_mul_add
+    return torch.stack(
+        [
+            mad(a[..., 1], b[..., 2], -(a[..., 2] * b[..., 1])),
+            mad(a[..., 2], b[..., 0], -(a[..., 0] * b[..., 2])),
+            mad(a[..., 0], b[..., 1], -(a[..., 1] * b[..., 0])),
+        ],
+        dim=-1,
+    )
+
+
+def dot_mad(a, b):
+    """`dot` rounded as fma(x2, y2, fma(x1, y1, x0*y0))."""
+    mad = utils.fast_mul_add
+    return mad(a[..., 2], b[..., 2],
+               mad(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 class Tri(NamedTuple):
@@ -91,12 +116,12 @@ class PrecomputedTri(NamedTuple):
         if tolerance is None:
             tolerance = -torch.finfo(self.p0.dtype).eps
         c = self.p0 - ray.org
-        r = cross(ray.dir, c)
-        inv_det = 1.0 / dot(self.n, ray.dir)
-        u = dot(r, self.e2) * inv_det
-        v = dot(r, self.e1) * inv_det
+        r = cross_mad(ray.dir, c)
+        inv_det = 1.0 / dot_mad(self.n, ray.dir)
+        u = dot_mad(r, self.e2) * inv_det
+        v = dot_mad(r, self.e1) * inv_det
         w = 1.0 - u - v
         ok = (u >= tolerance) & (v >= tolerance) & (w >= tolerance)
-        t = dot(self.n, c) * inv_det
+        t = dot_mad(self.n, c) * inv_det
         hit = ok & (t >= ray.tmin) & (t <= ray.tmax)
         return t, u, v, hit

@@ -35,16 +35,19 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
                 os.path.join(CSRC, "wide_treelet.cu"),
-                os.path.join(CSRC, "group_build.cu")]
+                os.path.join(CSRC, "group_build.cu"),
+                os.path.join(CSRC, "binary_traverse.cu")]
 CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
 # Stack capacities compiled into the kernels; a wrapper raises when
 # asked for a deeper stack.
 TOP_STACK_MAX = 64
 WIDE_STACK_MAX = 256
+BINARY_STACK_MAX = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v", f"-DBVH_TOP_STACK_MAX={TOP_STACK_MAX}",
-              f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}"]
+              f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}",
+              f"-DBVH_BINARY_STACK_MAX={BINARY_STACK_MAX}"]
 
 
 def build_shared_library(command, sources, hashed, stem: str) -> str:
@@ -106,6 +109,14 @@ _SIGNATURES = {
     # ptid, ptent, stats, stream
     "bvh_collect_portals": [_VP, _I, _VP, _I, _I, _I, _I, _I,
                             _VP, _VP, _VP, _VP],
+    # sup_table, Ps, sid, rays, L, robust, stack_depth, max_new,
+    # ntid, nt, stats, stream
+    "bvh_collect_super_pairs": [_VP, _I, _VP, _VP, _I, _I, _I, _I,
+                                _VP, _VP, _VP, _VP],
+    # node_b, node_w, tris, rays, R, root_word, any_hit, robust,
+    # stack_depth, out_f, out_i, stream
+    "bvh_binary_traverse_tris": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                 _VP, _VP, _VP],
     # table, T, P, tid, rays, L, any_hit, robust, stack_depth,
     # out_f, out_i, stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
@@ -180,7 +191,10 @@ class Kernel:
 COLLECT = Kernel("collect_portals", "bvh_collect_portals")
 WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
 GROUP_BUILD = Kernel("group_build", "bvh_group_build")
-KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD)
+COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
+BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
+KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD, COLLECT_SUPER,
+           BINARY_TRAVERSE)
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,12 @@
-from bvh_tpu_torch.traverse.wavefront import Hit, TraversalStats
+from bvh_tpu_torch.traverse.binary_kernel import pallas_fits, pallas_intersect_tris
+from bvh_tpu_torch.traverse.stack import max_depth, required_stack_depth
+from bvh_tpu_torch.traverse.wavefront import (
+    Hit,
+    TraversalStats,
+    intersect_tris,
+    make_tri_leaf_fn,
+    traverse,
+)
 from bvh_tpu_torch.traverse.wide_treelet import (
     WideTreelets,
     build_wide_treelets,
@@ -11,6 +19,13 @@ __all__ = [
     "TraversalStats",
     "WideTreelets",
     "build_wide_treelets",
+    "intersect_tris",
+    "make_tri_leaf_fn",
+    "max_depth",
+    "pallas_fits",
+    "pallas_intersect_tris",
+    "required_stack_depth",
+    "traverse",
     "wide_treelet_intersect_tris",
     "wide_treelets_from_numpy",
 ]

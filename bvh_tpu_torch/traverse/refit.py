@@ -1,4 +1,4 @@
-"""Parents, prim-position ownership and bottom-up refit.
+"""Parents, node depths, prim-position ownership and bottom-up refit.
 
 Counterpart of `bvh_tpu.traverse.refit` (reference: bvh.h:184-218). The
 refit is a wavefront up the tree: each pass recomputes every inner node
@@ -90,3 +90,17 @@ def refit(bvh: Bvh, prim_bb_min=None, prim_bb_max=None) -> Bvh:
         bounds = torch.where(can[:, None], merged, bounds)
         done = done | can
     return bvh._replace(bounds=bounds)
+
+
+def node_depths(bvh: Bvh) -> torch.Tensor:
+    """Depth of each node from the root (root = 0), one hop up the
+    parents array per pass. Unused slots read as depth 1."""
+    cap = bvh.index.shape[0]
+    dev = bvh.index.device
+    parents = compute_parents(bvh)
+    depth = (torch.arange(cap, device=dev) != 0).to(_I64)
+    hop = parents
+    while bool((hop != 0).any()):
+        depth = depth + (hop != 0).to(_I64)
+        hop = parents[hop]
+    return depth

@@ -9,6 +9,13 @@ reference, tensor outputs). A render then runs in two phases:
 
 - phase A (kernel B2, traverse/collect.py) walks the top region per
   ray and records every portal (treelet entry) with its entry distance;
+- phase A2, in two-level scenes only (a super level cut between the top
+  region and the treelets, for scenes whose top region passes 4,096
+  nodes): rounds of K2 supers per ray expand each ray's super portals,
+  in entry order, into treelet portals through kernel B4
+  (`collect_super_pairs`, per (ray, super) pair over that super's pair
+  table), merged stably after the ray's other portals by entry t
+  (`expand_supers`);
 - pair rounds: each ray's portals are sorted by entry distance, and
   each round expands the next K portals of every ray that is still
   ready into (ray, treelet) pairs, which kernel B1
@@ -18,9 +25,7 @@ reference, tensor outputs). A render then runs in two phases:
 
 The render loop ports what the reference's `_render_jit` computes, not its
 TPU schedule: rays are independent, so the TPU's chunking, tail tiers,
-run padding and DMA windows only schedule work and are left out. Two-
-level scenes (a super level above the treelets, kernel B4) are not
-ported yet and raise NotImplementedError.
+run padding and DMA windows only schedule work and are left out.
 
 Closest-hit results are exact; among exactly tied primitives the winner
 may differ from another implementation's, because the 8-way sorting
@@ -39,6 +44,7 @@ from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.core.types import INVALID_PRIM_ID, Bvh
 from bvh_tpu_torch.traverse.collect import (
     collect_portals,
+    collect_super_pairs,
     slab_inverse,
     slab_planes,
 )
@@ -51,6 +57,7 @@ ROWS = 64  # table rows: 8*6 bounds + 8 words | 4 * (12 tri values + gpos)
 # portals_per_round for scenes of fewer than 2048 treelets
 # (wide_treelet_perf, wide_treelet.py:2064)
 PORTALS_PER_ROUND = 4
+K2 = 2  # supers expanded per ready ray and A2 round (the reference's k2)
 
 
 class WideTreelets(NamedTuple):
@@ -229,7 +236,7 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
     4-bit count field).
     `super_prims`: additionally cut the top region at subtrees of
     <= super_prims primitives; None = auto (when the top region exceeds
-    4096 nodes). The render does not take such scenes yet."""
+    4096 nodes)."""
     if device is None:
         device = bvh.bounds.device
     tri_np = np.asarray(torch.as_tensor(tri_flat).cpu().numpy(), np.float32)
@@ -744,6 +751,14 @@ def wide_treelet_caps(tl: WideTreelets, portals_per_round: int = 4) -> dict:
                 mps=mps, max_new=max_new)
 
 
+def portals_per_round(tl: WideTreelets) -> int:
+    """Portals expanded per ready ray and round: the reference's
+    `wide_treelet_perf` (wide_treelet.py:2060-2065), 16 for scenes of
+    2,048 treelets or more, else 4. It sets the work per round only;
+    the results do not depend on it."""
+    return 16 if tl.table.shape[0] >= 2048 else PORTALS_PER_ROUND
+
+
 def octants(rays8) -> torch.Tensor:
     """Direction octant (sign bits x + 2y + 4z) of [8, R] packed rays."""
     neg = torch.signbit(rays8[3:6]).to(torch.int64)
@@ -785,6 +800,87 @@ def collect_and_sort(tl: WideTreelets, packed, *, robust: bool,
                    else 0, bool(stats[2].any()))
 
 
+def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
+                  robust: bool, sup_stack: int, mps: int, max_new: int,
+                  max_portals: int, collect_super=collect_super_pairs):
+    """Phase A2 (wide_treelet.py:1740-1873): replace each ray's super
+    portals (tid >= T) by the treelet portals inside those supers.
+
+    Each ray's supers, in entry order and at most `mps` of them, are
+    expanded K2 per ready ray and round: one B4 walk per (ray, super)
+    pair, with the ray's own tmax, records up to `max_new` treelet
+    portals; the new portals (record-major, then super) are merged
+    stably after the ray's treelet portals by entry t and cut to
+    `max_portals`. Rounds go on until no ray has a super left, where the
+    reference stops after 64 rounds (ROADMAP C11).
+
+    Returns (tid [MP, Rc] int64, tent [MP, Rc] f32, bits, diag): bits
+    is the reference's overflow mask (1: more than mps supers, 2: a pair
+    recorded more than max_new, 4: a merged list longer than
+    max_portals), diag the A2 rounds, pairs and B4's stack overflow."""
+    T = tl.table.shape[0]
+    dev = rays_c.device
+    i64 = torch.int64
+    tid, tent = portals.tid, portals.tent
+    Rc = tid.shape[1]
+    is_sup = tid >= T
+    bits = 0
+    if Rc and int(is_sup.sum(0).max()) > mps:
+        bits |= 1
+    # supers in entry order (the lists are sorted by entry t, stably)
+    order = torch.sort((~is_sup).to(torch.int8), dim=0, stable=True).indices
+    sup_id = torch.where(is_sup, tid - T, -1).gather(0, order)[:mps]
+    if sup_id.shape[0] < mps:
+        sup_id = torch.cat([sup_id, sup_id.new_full(
+            (mps - sup_id.shape[0], Rc), -1)])
+    main_t, order = torch.sort(torch.where(is_sup, float("inf"), tent),
+                               dim=0, stable=True)
+    main_id = torch.where(is_sup, -1, tid).gather(0, order)
+    diag = dict(a2_rounds=0, a2_pairs=0, sup_ovf=False)
+    scur = torch.zeros(Rc, dtype=i64, device=dev)
+    lanes = torch.arange(Rc, device=dev)
+    steps = torch.arange(K2, device=dev)[:, None]
+    while True:
+        cur = torch.where(scur < mps, sup_id.gather(
+            0, scur.clamp(max=mps - 1)[None])[0], -1)
+        rsel = lanes[cur >= 0]
+        if rsel.numel() == 0:
+            break
+        idx = scur[rsel][None, :] + steps                     # [K2, Rr]
+        wsid = torch.where(idx < mps, sup_id[:, rsel].gather(
+            0, idx.clamp(max=mps - 1)), -1)
+        jj, rr = torch.nonzero(wsid >= 0, as_tuple=True)
+        perm = torch.sort(wsid[jj, rr], stable=True).indices  # by super
+        jj, rr = jj[perm], rr[perm]
+        ntid, nt, stats = collect_super(
+            tl.sup_table, wsid[jj, rr].to(torch.int32).contiguous(),
+            rays_c[:, rsel[rr]].contiguous(), robust=robust,
+            stack_depth=sup_stack, max_new=max_new)
+        diag["a2_rounds"] += 1
+        diag["a2_pairs"] += rr.numel()
+        if rr.numel():
+            if int(stats[0].max()) > max_new:
+                bits |= 2
+            diag["sup_ovf"] |= bool(stats[2].any())
+        Rr = rsel.numel()
+        new_id = torch.full((max_new, K2, Rr), -1, dtype=i64, device=dev)
+        new_t = torch.full((max_new, K2, Rr), float("inf"),
+                           dtype=torch.float32, device=dev)
+        new_id[:, jj, rr] = ntid.to(i64)
+        new_t[:, jj, rr] = nt
+        cat_t, order = torch.sort(
+            torch.cat([main_t[:, rsel], new_t.reshape(-1, Rr)]), dim=0,
+            stable=True)
+        cat_id = torch.cat([main_id[:, rsel],
+                            new_id.reshape(-1, Rr)]).gather(0, order)
+        if int(torch.isfinite(cat_t).sum(0).max()) > max_portals:
+            bits |= 4
+        main_t[:, rsel] = cat_t[:max_portals]
+        main_id[:, rsel] = cat_id[:max_portals]
+        scur[rsel] += K2
+    return main_id, main_t, bits, diag
+
+
 def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
                 k: int):
     """The (ray, treelet) pairs of one round: portals cur..cur+k-1 of
@@ -810,7 +906,8 @@ def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
 
 
 def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
-            stack_depth, max_portals, max_rounds, k, collect, traverse):
+            stack_depth, max_portals, max_rounds, k, collect, traverse,
+            collect_super, sup_stack, mps, max_new):
     """One render at fixed capacities. Returns the per-ray best hit
     (t, u, v, pos), phase-A counts, the round count and the overflow
     observations the caller checks."""
@@ -822,7 +919,7 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     diag = dict(max_cnt=int(portals.cnt.max()) if R else 0,
                 top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
                 stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
-                pending=False)
+                pending=False, a2_bits=0)
     out_t = torch.full((R,), float("inf"), dtype=f32, device=dev)
     out_u = torch.zeros(R, dtype=f32, device=dev)
     out_v = torch.zeros(R, dtype=f32, device=dev)
@@ -833,6 +930,15 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     sel = portals.sel
     Rc = sel.numel()
     rays_c = packed[:, sel]
+    if tl.sup_table.shape[0] > 0:
+        tid, tent, bits, a2 = expand_supers(
+            tl, portals, rays_c, robust=robust, sup_stack=sup_stack, mps=mps,
+            max_new=max_new, max_portals=max_portals,
+            collect_super=collect_super)
+        diag.update(a2, a2_bits=bits)
+        if bits or a2["sup_ovf"]:
+            return out_t, out_u, out_v, out_pos, portals.cnt, diag
+        portals = portals._replace(tid=tid, tent=tent)
     octant = octants(rays_c)
     tmax = rays_c[7].clone()
     bt = torch.full((Rc,), float("inf"), dtype=f32, device=dev)
@@ -905,6 +1011,8 @@ def wide_treelet_intersect_tris(
     stack_depth: int | None = None,
     max_portals: int | None = None,
     max_rounds: int | None = None,
+    mps: int | None = None,
+    max_new: int | None = None,
     auto_caps: bool = True,
     return_diag: bool = False,
 ) -> Hit:
@@ -914,8 +1022,10 @@ def wide_treelet_intersect_tris(
     `prim_ids`: the tree's permutation, to translate hit positions to
     primitive ids (None when primitives were pre-permuted).
     Capacities default to the reference's: top_stack = top_depth + 1,
-    stack_depth = 7 * wide_depth + 8, max_portals and max_rounds from
-    `wide_treelet_caps`. Every capacity has an exact overflow flag;
+    stack_depth = 7 * wide_depth + 8, max_portals, max_rounds and, in
+    two-level scenes, mps (supers per ray) and max_new (treelet portals
+    per (ray, super) pair) from `wide_treelet_caps`; phase A2's stack is
+    sup_depth + 1. Every capacity has an exact overflow flag;
     with `auto_caps` an overflowed run is discarded and re-run with the
     named cap doubled (max_portals jumps to the reported need),
     otherwise it raises. Results of an overflowed run are never
@@ -925,24 +1035,23 @@ def wide_treelet_intersect_tris(
     return _intersect(tl, rays, prim_ids, collect_portals, traverse_pairs,
                       any_hit=any_hit, robust=robust, top_stack=top_stack,
                       stack_depth=stack_depth, max_portals=max_portals,
-                      max_rounds=max_rounds, auto_caps=auto_caps,
-                      return_diag=return_diag)
+                      max_rounds=max_rounds, mps=mps, max_new=max_new,
+                      auto_caps=auto_caps, return_diag=return_diag)
 
 
 def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                robust=False, top_stack=None, stack_depth=None,
-               max_portals=None, max_rounds=None, auto_caps=True,
-               return_diag=False):
-    """`wide_treelet_intersect_tris` with phase A and the pair traversal
-    given as `collect` and `traverse`: the kernels' dispatchers, or
-    their plain versions (`collect_portals_ref`, `traverse_pairs_ref`)
-    to run the render without the kernels on any device."""
-    if tl.sup_table.shape[0] > 0:
-        raise NotImplementedError(
-            "two-level treelet scenes (a super level, phase A2 = kernel B4) "
-            "are not ported yet")
+               max_portals=None, max_rounds=None, mps=None, max_new=None,
+               auto_caps=True, return_diag=False,
+               collect_super=collect_super_pairs):
+    """`wide_treelet_intersect_tris` with phase A, the pair traversal and
+    phase A2 given as `collect`, `traverse` and `collect_super`: the
+    kernels' dispatchers, or their plain versions (`collect_portals_ref`,
+    `traverse_pairs_ref`, `collect_super_pairs_ref`) to run the render
+    without the kernels on any device."""
     R = rays.tmin.shape[0]
-    auto = wide_treelet_caps(tl, PORTALS_PER_ROUND)
+    k = portals_per_round(tl)
+    auto = wide_treelet_caps(tl, k)
     caps = dict(
         top_stack=top_stack if top_stack is not None else tl.top_depth + 1,
         stack_depth=(stack_depth if stack_depth is not None
@@ -951,6 +1060,9 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                      else auto["max_portals"]),
         max_rounds=(max_rounds if max_rounds is not None
                     else auto["max_rounds"]),
+        mps=mps if mps is not None else auto["mps"],
+        max_new=max_new if max_new is not None else auto["max_new"],
+        sup_stack=tl.sup_depth + 1,
     )
     packed = pack_rays(rays)
     for attempt in range(8):
@@ -958,7 +1070,9 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
             tl, packed, any_hit=any_hit, robust=robust,
             top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
             max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
-            k=PORTALS_PER_ROUND, collect=collect, traverse=traverse)
+            k=k, collect=collect, traverse=traverse,
+            collect_super=collect_super, sup_stack=caps["sup_stack"],
+            mps=caps["mps"], max_new=caps["max_new"])
         bumps = {}
         if diag["max_cnt"] > caps["max_portals"]:
             bumps["max_portals"] = _up_pow2(diag["max_cnt"])
@@ -968,6 +1082,15 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
             bumps["stack_depth"] = 2 * caps["stack_depth"]
         if diag["pending"]:
             bumps["max_rounds"] = 2 * caps["max_rounds"]
+        if diag["a2_bits"] & 1:
+            bumps["mps"] = 2 * caps["mps"]
+        if diag["a2_bits"] & 2:
+            bumps["max_new"] = 2 * caps["max_new"]
+        if diag["a2_bits"] & 4:
+            bumps["max_portals"] = max(bumps.get("max_portals", 0),
+                                       2 * caps["max_portals"])
+        if diag.get("sup_ovf"):
+            bumps["sup_stack"] = 2 * caps["sup_stack"]
         if not bumps:
             break
         if not auto_caps or attempt == 7:

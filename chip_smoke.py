@@ -1,6 +1,7 @@
 """Card check of the PyTorch/CUDA port: builds the sponza-262K tree on one
 CUDA device through the port's build and renders it through the port's
-kernels, as bench.py runs the JAX reference, and verifies every step.
+kernels, as bench.py runs the JAX reference; runs the renderer CLI on
+the Cornell box and on a San-Miguel-class scene; and verifies every step.
 
     python3 chip_smoke.py
 
@@ -42,12 +43,33 @@ exits non-zero):
    that t;
 10. timing with CUDA events, kernel beside plain version, and the
    device build stage by stage; the last output of every timed loop is
-   compared with the verified run.
+   compared with the verified run;
+11. (a) the CLI (`cli.benchmark`'s argument parsing, OBJ load and `run`)
+   on tests/golden/cornell.obj at 1024x1024 from the reference's test
+   camera, -p --robust-traversal, at -q low, med and high: each run
+   launches kernel B5 and neither B1 nor B2; every ray's t, u, v,
+   position and counts equal B5's plain version bit for bit; the PPM
+   equals, byte for byte, the PPM drawn from the plain version's hits;
+   the intersection count is the C++ reference's 1,027,152;
+12. (b) B5 on the 262K tree with all 1,048,576 primary rays, fast and
+   robust: every 16th ray (65,536) equal to the plain version bit for
+   bit; the hits agree with the wide-treelet render of the same tree
+   (at most 4 rays differ, by a mask flip or a hit at another t; prim
+   ids differ elsewhere only on exact-t ties);
+13. (c) the CLI's `run` on sponza_class(10,000,000, 0), the
+   San-Miguel-class scene, at 1024x1024 and -q high from
+   `scene_camera`: the build launches B3, the treelet cut has a super
+   level (S > 0), the render launches B2, B4 and B1; B4 equals its
+   plain version bit for bit on every (ray, super) pair of the first
+   A2 round; every 16th ray's t and position equal the plain-version
+   driver's; the hit count is the C++ oracle's 77,420 within 4 per
+   million; the build stage by stage, the treelet cut and the render
+   timed with CUDA events.
 
 The second-to-last lines are a JSON object naming each kernel with its
-launches, error and times, and the card's name and power limit; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script exits 1 and prints no result.
+launches, error, times and bound, and the card's name and power limit;
+the last line is {"ok": true, "device": {...}}. Without a CUDA device
+the script exits 1 and prints no result. PPMs go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -70,6 +92,25 @@ ORACLE_HITS_REFERENCE_TREE = 81_790
 # scene (bench.py:34-37: 4 per million, edge hits under other rounding).
 EDGE_BUDGET = 4
 BUILD_REPS = 3  # timed device builds
+# Hit count of the C++ reference's benchmark tool on its cornell_box.obj
+# (= tests/golden/cornell.obj) at 1024x1024 from the test camera.
+CORNELL_HITS = 1_027_152
+N_BIG = 10_000_000  # the San-Miguel-class scene (tools/bench_sanmiguel.py)
+# Closest-hit count of the C++ oracle on that scene and camera
+# (BENCHMARKS_r4.txt:59).
+BIG_ORACLE_HITS = 77_420
+# H100 SXM peaks (NVIDIA's data sheet): device memory rate and float32
+# rate outside the tensor cores, for each kernel's bound.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# Float operations per step, counted as lower bounds: a slab test of one
+# box (3 axes of two planes, a multiply and an add each, then a max and a
+# min per axis) 18; a Möller–Trumbore test 40; a B1 step at least 8
+# slab tests (144); a recorded portal came from a node step of 2 boxes
+# that records at most 2 portals (18).
+OPS_BOX, OPS_TRI, OPS_WIDE_STEP, OPS_PORTAL = 18, 40, 144, 18
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 
 def log(msg: str) -> None:
@@ -116,6 +157,18 @@ def time_ms(fn, n: int) -> tuple[float, object]:
     return start.elapsed_time(end) / n, out
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take (ms): the larger of the bytes
+    over the memory rate and the operations over the float32 rate."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = ops / PEAK_F32_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def tree_checks(bvh, n: int) -> dict:
     """The tree's invariants, computed on the card."""
     from bvh_tpu_torch.build.sah import node_half_area
@@ -142,6 +195,309 @@ def tree_checks(bvh, n: int) -> dict:
         inner_exact=bool(torch.equal(bounds[inner], merged)),
         half_area=float(node_half_area(bounds[1:]).double().sum()),
     )
+
+
+def cli_args(argv, **overrides):
+    """The CLI's parsed arguments, with fields set past the parser (a
+    camera given as floats)."""
+    from bvh_tpu_torch.cli import benchmark as cli
+
+    args = cli.parser().parse_args(argv)
+    for k, v in overrides.items():
+        setattr(args, k, v)
+    return args
+
+
+def cornell_cli_phase() -> dict:
+    """Phase 11 (a): the CLI on the golden Cornell box through B5."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.cli import benchmark as cli
+    from bvh_tpu_torch.io.obj import load_obj
+    from bvh_tpu_torch.io.ppm import save_ppm
+    from bvh_tpu_torch.traverse import binary_kernel as bk
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from bvh_tpu_torch.traverse.stack import required_stack_depth
+
+    obj = os.path.join(HERE, "tests", "golden", "cornell.obj")
+    out = dict(launches=0, err=0.0)
+    for q in ("low", "med", "high"):
+        ppm = os.path.join(OUT_DIR, f"cornell_{q}.ppm")
+        args = cli_args([obj, "--eye", "0", "1", "2", "--dir", "0", "0",
+                         "-1", "--up", "0", "1", "0", "-p",
+                         "--robust-traversal", "-q", q, "-w", str(SIDE),
+                         "--height", str(SIDE), "-o", ppm])
+        p0, p1, p2 = load_obj(args.input_model)
+        log(f"# CLI, Cornell box, -q {q}: Loaded file with {len(p0)} "
+            f"triangle(s)")
+        kernels.reset_launch_counts()
+        res = cli.run(p0, p1, p2, args)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        log(f"# CLI -q {q}: path {res.path}, launches {launches}, build "
+            f"{res.build_s * 1e3:.3f} ms, render {res.render_s * 1e3:.3f} "
+            f"ms (CUDA events)")
+        if (res.path != "binary" or launches["binary_traverse"] == 0
+                or launches["collect_portals"] or launches["traverse_pairs"]):
+            raise AssertionError(f"the CLI on the Cornell box must run B5 "
+                                 f"alone: {res.path}, {launches}")
+        out["launches"] += launches["binary_traverse"]
+
+        # B5 against its plain version on every ray, the CLI's hits too
+        tables = bk.make_tables(res.bvh, res.flat, permuted=True)
+        packed = wt.pack_rays(res.rays)
+        kw = dict(any_hit=False, robust=True,
+                  stack_depth=max(16, required_stack_depth(res.bvh)))
+        kf, ki = bk.binary_traverse(tables, packed, **kw)
+        pf, pi = bk.binary_traverse_ref(tables, packed, **kw)
+        fin = torch.isfinite(pf[0])
+        if fin.any():
+            out["err"] = max(out["err"], float(
+                (kf[0][fin] - pf[0][fin]).abs().max()))
+        ray_diff = ((bits(kf) != bits(pf)).any(0)
+                    | (ki != pi).any(0)).sum()
+        hit_t = torch.where(res.hit.hit, res.hit.t, float("inf"))
+        log(f"# B5 vs plain, Cornell -q {q}, {packed.shape[1]} rays: "
+            f"{int(ray_diff)} rays differ; steps {int(ki[1].sum())} inner, "
+            f"{int(ki[2].sum())} leaves; CLI hits == kernel: "
+            f"{same(hit_t, kf[0])}")
+        if not (same(kf, pf) and same(ki, pi) and same(hit_t, kf[0])):
+            raise AssertionError(f"B5 and its plain version differ ({q})")
+        plain_hit = bk.pallas_intersect_tris(
+            res.bvh, res.flat, res.rays, robust=True, permuted=True,
+            traverse=bk.binary_traverse_ref)
+        plain_ppm = os.path.join(OUT_DIR, f"cornell_{q}_plain.ppm")
+        save_ppm(plain_ppm, cli.image_for(plain_hit, res.flat, res.rays,
+                                          args))
+        with open(ppm, "rb") as a, open(plain_ppm, "rb") as b:
+            ppm_same = a.read() == b.read()
+        n_hits = int(res.hit.hit.sum())
+        log(f"# Cornell -q {q}: {n_hits} intersection(s) (C++ reference "
+            f"{CORNELL_HITS}); PPM equal to the plain version's: {ppm_same}")
+        if not ppm_same or n_hits != CORNELL_HITS:
+            raise AssertionError(f"Cornell -q {q}: PPM or hit count wrong")
+
+    # B5's times at the CLI's shapes (the -q high run)
+    out["ms"], last = time_ms(lambda: bk.binary_traverse(tables, packed,
+                                                          **kw), 20)
+    out["plain_ms"], plast = time_ms(lambda: bk.binary_traverse_ref(
+        tables, packed, **kw), 2)
+    if not (same(last, (kf, ki)) and same(plast, (kf, ki))):
+        raise AssertionError("timed B5 output diverged")
+    fetched = 56 * int(ki[1].sum()) + 48 * int(ki[2].sum())
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes(packed, kf, ki)
+        + min(nbytes(tables.node_b, tables.node_w, tables.tris), fetched),
+        2 * OPS_BOX * int(ki[1].sum()) + OPS_TRI * int(ki[2].sum()))
+    log(f"# B5, Cornell, {packed.shape[1]} rays: kernel {out['ms']:.3f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    return out
+
+
+def b5_full_phase(tree, flat, rays, whit, tl) -> dict:
+    """Phase 12 (b): B5 on the 262K tree with every primary ray, fast and
+    robust, against its plain version and the wide-treelet render."""
+    from bvh_tpu_torch.traverse import binary_kernel as bk
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from bvh_tpu_torch.traverse.stack import required_stack_depth
+    from bvh_tpu_torch.traverse.wavefront import hit_from
+
+    tables = bk.make_tables(tree, flat)
+    packed = wt.pack_rays(rays)
+    psub = packed[:, ::SUBSET].contiguous()
+    sd = required_stack_depth(tree)
+    out = {}
+    for robust in (False, True):
+        kw = dict(any_hit=False, robust=robust, stack_depth=sd)
+        kf, ki = bk.binary_traverse(tables, packed, **kw)
+        pf, pi = bk.binary_traverse_ref(tables, psub, **kw)
+        sub_same = same(kf[:, ::SUBSET].contiguous(), pf) and same(
+            ki[:, ::SUBSET].contiguous(), pi)
+        i64 = ki.to(torch.int64)
+        bh = hit_from(tree, kf[0], kf[1], kf[2], i64[0], i64[1], i64[2])
+        wh = whit if not robust else wt.wide_treelet_intersect_tris(
+            tl, rays, tree.prim_ids, robust=True)
+        hb, hw = torch.isfinite(bh.t), torch.isfinite(wh.t)
+        both = hb & hw
+        t_diff = both & (bits(bh.t) != bits(wh.t))
+        res = dict(hits=int(hb.sum()), wide_hits=int(hw.sum()),
+                   mask_flips=int((hb != hw).sum()), t_differs=int(t_diff.sum()),
+                   prim_id_ties=int((both & ~t_diff
+                                     & (bh.prim_id != wh.prim_id)).sum()),
+                   subset_bitwise=sub_same, overflow=bool(ki[3].any()),
+                   stack_depth=sd)
+        form = "robust" if robust else "fast"
+        log(f"# B5 on the 262K tree, {form}, {packed.shape[1]} rays: {res}")
+        if (not sub_same or res["overflow"]
+                or res["mask_flips"] + res["t_differs"] > EDGE_BUDGET):
+            raise AssertionError(f"B5 on the 262K tree ({form}) disagrees")
+        if not robust:
+            out["ms"], last = time_ms(lambda: bk.binary_traverse(
+                tables, packed, **kw), 10)
+            if not same(last, (kf, ki)):
+                raise AssertionError("timed B5 output diverged")
+            log(f"# B5 on the 262K tree, fast: {out['ms']:.3f} ms per "
+                f"1,048,576 rays, {int(ki[1].sum())} inner steps, "
+                f"{int(ki[2].sum())} leaves")
+    return out
+
+
+def two_level_phase() -> dict:
+    """Phase 13 (c): the CLI's run on the San-Miguel-class scene; the
+    two-level render through B4."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.build import group_kernel as gk
+    from bvh_tpu_torch.build import minitree_fast as mtf
+    from bvh_tpu_torch.build.default import (
+        DefaultConfig,
+        Quality,
+        _mini_tree_config,
+    )
+    from bvh_tpu_torch.build.reinsertion import optimize_reinsertion
+    from bvh_tpu_torch.cli import benchmark as cli
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.geom.tri import Tri
+    from bvh_tpu_torch.io.scenes import scene_camera, sponza_class
+    from bvh_tpu_torch.traverse import collect as col
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    t0 = time.perf_counter()
+    tris = sponza_class(N_BIG, seed=0)
+    eye, d, up = scene_camera(tris)
+    log(f"# San-Miguel-class scene: {len(tris)} triangles made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    args = cli_args(["sponza_class.obj", "-q", "high", "-w", str(SIDE),
+                     "--height", str(SIDE), "-o",
+                     os.path.join(OUT_DIR, "sanmiguel_class.ppm")],
+                    eye=[float(x) for x in eye], dir=[float(x) for x in d],
+                    up=[float(x) for x in up])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cli.run(tris[:, 0], tris[:, 1], tris[:, 2], args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    tl = res.tl
+    T, _, P = tl.table.shape
+    S, _, Ps = tl.sup_table.shape
+    log(f"# CLI run, San-Miguel class: path {res.path}, {res.bvh.node_count} "
+        f"nodes; T={T} S={S} P={P} Ps={Ps} sup_depth={tl.sup_depth} "
+        f"top_depth={tl.top_depth} wide_depth={tl.wide_depth}; launches "
+        f"{launches}; build {res.build_s * 1e3:.3f} ms, build_wide_treelets "
+        f"{res.treelets_s * 1e3:.3f} ms, render {res.render_s * 1e3:.3f} ms "
+        f"(CUDA events); {wall:.1f} s in all")
+    if res.path != "wide_treelet" or S == 0:
+        raise AssertionError("the San-Miguel-class scene must take the "
+                             "two-level wide-treelet render")
+    for k in ("group_build", "collect_portals", "collect_super_pairs",
+              "traverse_pairs"):
+        if launches[k] == 0:
+            raise AssertionError(f"phase c never launched {k}")
+    R = SIDE * SIDE
+    n_hits = int(res.hit.hit.sum())
+    log(f"# San-Miguel class: {n_hits} hits of {R} rays (C++ oracle "
+        f"{BIG_ORACLE_HITS})")
+    if abs(n_hits - BIG_ORACLE_HITS) > 4 * R // 1_000_000:
+        raise AssertionError("the two-level render's hit count is off")
+
+    # B4 against its plain version on every pair of the first A2 round
+    caps = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
+    packed = wt.pack_rays(res.rays)
+    portals = wt.collect_and_sort(tl, packed, robust=False,
+                                  top_stack=tl.top_depth + 1,
+                                  max_portals=caps["max_portals"])
+    first = {}
+
+    def recorder(sup_table, sid, prays, **kw):
+        if not first:
+            first.update(sid=sid, rays=prays, kw=kw)
+        return col.collect_super_pairs(sup_table, sid, prays, **kw)
+
+    wt.expand_supers(tl, portals, packed[:, portals.sel], robust=False,
+                     sup_stack=tl.sup_depth + 1, mps=caps["mps"],
+                     max_new=caps["max_new"], max_portals=caps["max_portals"],
+                     collect_super=recorder)
+    args4 = (tl.sup_table, first["sid"], first["rays"])
+    k_out = col.collect_super_pairs(*args4, **first["kw"])
+    p_out = col.collect_super_pairs_ref(*args4, **first["kw"])
+    L = first["sid"].numel()
+    fin = torch.isfinite(p_out[1])
+    err = float((k_out[1][fin] - p_out[1][fin]).abs().max()) if fin.any() \
+        else 0.0
+    log(f"# B4 collect_super_pairs vs plain, first A2 round, {L} pairs of "
+        f"{portals.sel.numel()} rays: equal bit for bit {same(k_out, p_out)}; "
+        f"treelet portals per pair up to {int(k_out[2][0].max())} (max_new "
+        f"{first['kw']['max_new']}), stack hwm {int(k_out[2][1].max())} "
+        f"(sup_stack {first['kw']['stack_depth']})")
+    if not same(k_out, p_out):
+        raise AssertionError("B4 and its plain version differ")
+
+    # the render against the plain-version driver on every 16th ray
+    sub = slice(None, None, SUBSET)
+    r = res.rays
+    ph = wt._intersect(tl, Ray(r.org[sub], r.dir[sub], r.tmin[sub],
+                               r.tmax[sub]), res.bvh.prim_ids,
+                       col.collect_portals_ref, wt.traverse_pairs_ref,
+                       collect_super=col.collect_super_pairs_ref)
+    d_ = {f: int((bits(getattr(res.hit, f)[sub]) != bits(getattr(ph, f)))
+                 .sum()) for f in ("t", "prim_pos")}
+    log(f"# San-Miguel class render vs plain render on every {SUBSET}th ray "
+        f"({ph.t.numel()} rays): differing rays per field {d_}")
+    if any(d_.values()):
+        raise AssertionError("two-level render: kernels and plain versions "
+                             "disagree")
+
+    # times: B4 at the first round's shapes, the build stage by stage
+    out = dict(launches=launches, err=err, pairs=L)
+    out["ms"], last = time_ms(lambda: col.collect_super_pairs(
+        *args4, **first["kw"]), 20)
+    out["plain_ms"], plast = time_ms(lambda: col.collect_super_pairs_ref(
+        *args4, **first["kw"]), 2)
+    if not (same(last, k_out) and same(plast, k_out)):
+        raise AssertionError("timed B4 output diverged")
+    recorded = int(k_out[2][0].sum())
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes(first["sid"], first["rays"], *k_out)
+        + min(nbytes(tl.sup_table), 56 * recorded // 2),
+        OPS_PORTAL * recorded)
+    log(f"# B4, {L} pairs: kernel {out['ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    dev = res.bvh.bounds.device
+    tri = Tri(*(torch.as_tensor(tris[:, i], device=dev) for i in range(3)))
+    mn, mx = tri.get_bbox()
+    cc = tri.get_center()
+    mtc = _mini_tree_config(DefaultConfig(quality=Quality.HIGH))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    plan = mtf.staging_plan(cc, mtc)
+    pf, base = mtf.pack_groups(mn, mx, cc, plan)
+    ev[1].record()
+    cfg = plan.config
+    b3 = gk.group_forest_build(pf, plan.counts, dim=3, P=plan.P,
+                               NCAP=plan.NCAP, min_leaf=cfg.min_leaf_size,
+                               max_leaf=cfg.max_leaf_size,
+                               log_cluster=cfg.sah.log_cluster_size,
+                               cost_ratio=cfg.sah.cost_ratio)
+    ev[2].record()
+    pre = mtf.assemble(*b3, base, plan)
+    ev[3].record()
+    tree = optimize_reinsertion(pre)
+    ev[4].record()
+    torch.cuda.synchronize()
+    stages = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(
+        ("staging", "b3", "assemble", "reinsertion"))}
+    stages["total"] = ev[0].elapsed_time(ev[4])
+    same_build = (tree.node_count == res.bvh.node_count
+                  and same(tree.index, res.bvh.index)
+                  and same(tree.prim_ids, res.bvh.prim_ids))
+    log(f"# San-Miguel class build stage by stage, ms (CUDA events; G="
+        f"{plan.G} P={plan.P}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; tree == the CLI's: {same_build}")
+    if not same_build:
+        raise AssertionError("the staged build differs from the CLI's")
+    return out
 
 
 def run() -> dict:
@@ -184,7 +540,7 @@ def run() -> dict:
     native_s = time.perf_counter() - t0
     data = native.to_bytes(handle)
     native.destroy(handle)
-    native_bvh = deserialize_from_bytes(data)
+    native_bvh = deserialize_from_bytes(data, device="cpu")
     log(f"# native quality-high build on the host ({os.cpu_count()} "
         f"threads): {native_bvh.node_count} nodes, {native_s:.3f} s")
     mn, mx, cc = (torch.from_numpy(a).to(dev) for a in boxes)
@@ -495,22 +851,61 @@ def run() -> dict:
             for k, vs in stage_ms.items())
         + f"; reinsertion steps {st['steps']}; native host build "
         f"{native_s * 1e3:.3f} ms")
+
+    # the bounds of B1-B3 at the shapes timed above, from the kernels'
+    # own counts: B2's recorded portals, B1's active steps per pair
+    pcnt = int(k_out[2][0].sum())
+    bounds = {"b2": bound(nbytes(packed, *k_out)
+                          + min(nbytes(tl.top_node_t), 56 * pcnt // 2),
+                          OPS_PORTAL * pcnt)}
+    asteps = int(b1_ref[1][1].sum())
+    bounds["b1"] = bound(nbytes(ptid, prays, *b1_ref)
+                         + min(nbytes(tl.table), 256 * asteps),
+                         OPS_WIDE_STEP * asteps)
+    bounds["b3"] = bound(nbytes(pf, plan.counts, *b3_out), 0)
+    for k, (ms, by) in bounds.items():
+        log(f"# bound of {k} at the timed shapes: {ms:.4f} ms ({by})")
+
+    # ---- 11-13. the CLI: Cornell through B5, B5 on the 262K tree, the
+    # ---- San-Miguel-class two-level render through B4 ----------------
+    os.makedirs(OUT_DIR, exist_ok=True)
+    b5 = cornell_cli_phase()
+    b5_full_phase(tree, flat, rays, hit, tl)
+    del tl, ntl, nhit, shit, srays, spacked
+    torch.cuda.empty_cache()
+    b4 = two_level_phase()
     log(f"# card: {card_line()}")
 
-    def entry(k, source, replaces, key):
+    def entry(k, source, replaces, key, n):
         return {"name": k.name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[k.name],
+                "replaces": replaces, "launches": n,
                 "max_abs_err": err[key],
                 "ms": timings[f"{key}_kernel_ms"],
-                "plain_ms": timings[f"{key}_plain_ms"]}
+                "plain_ms": timings[f"{key}_plain_ms"],
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": None}
 
+    err["b5"], err["b4"] = b5["err"], b4["err"]
+    for key, d_ in (("b5", b5), ("b4", b4)):
+        timings[f"{key}_kernel_ms"] = d_["ms"]
+        timings[f"{key}_plain_ms"] = d_["plain_ms"]
+        bounds[key] = (d_["bound_ms"], d_["bound_by"])
     return {"kernels": [
         entry(kernels.COLLECT, "bvh_tpu_torch/csrc/collect.cu",
-              "bvh_tpu/traverse/collect.py:25", "b2"),
+              "bvh_tpu/traverse/collect.py:25", "b2",
+              launches[kernels.COLLECT.name]),
         entry(kernels.WIDE_TREELET, "bvh_tpu_torch/csrc/wide_treelet.cu",
-              "bvh_tpu/traverse/wide_treelet.py:741", "b1"),
+              "bvh_tpu/traverse/wide_treelet.py:741", "b1",
+              launches[kernels.WIDE_TREELET.name]),
         entry(kernels.GROUP_BUILD, "bvh_tpu_torch/csrc/group_build.cu",
-              "bvh_tpu/build/group_kernel.py:383", "b3"),
+              "bvh_tpu/build/group_kernel.py:383", "b3",
+              launches[kernels.GROUP_BUILD.name]),
+        entry(kernels.COLLECT_SUPER, "bvh_tpu_torch/csrc/collect.cu",
+              "bvh_tpu/traverse/wide_treelet.py:1158", "b4",
+              b4["launches"][kernels.COLLECT_SUPER.name]),
+        entry(kernels.BINARY_TRAVERSE,
+              "bvh_tpu_torch/csrc/binary_traverse.cu",
+              "bvh_tpu/traverse/pallas_kernel.py:93", "b5", b5["launches"]),
     ]}
 
 

@@ -53,7 +53,7 @@ def slice_run():
     flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
     tl = twt.build_wide_treelets(tbvh, flat, max_prims=256)
     eye, d, up = scene_camera(tris)
-    rays = primary_rays(eye, d, up, 32, 32)
+    rays = primary_rays(eye, d, up, 32, 32, device="cpu")
     hit = twt.wide_treelet_intersect_tris(tl, rays, tbvh.prim_ids)
     mn, mx = tris.reshape(-1, 3).min(0), tris.reshape(-1, 3).max(0)
     light = torch.tensor([mn[0], 0.5 * mx[1], mn[2]], dtype=torch.float32)

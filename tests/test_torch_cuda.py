@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-CUDA device: the render kernels in every mode (closest/any-hit x
-fast/robust), and the group build (B3) on groups that reach each of its
-branches. They skip where there is no device. The repository's conftest imports jax, which
+CUDA device: the render kernels (B1, B2) and the binary traversal (B5)
+in every mode (closest/any-hit x fast/robust), phase A2 (B4) and the
+two-level render, and the group build (B3) on groups that reach each of
+its branches. They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -23,25 +24,28 @@ from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
 from bvh_tpu_torch.io.scenes import scene_camera, sponza_class
 from bvh_tpu_torch.io.serialize import deserialize_from_bytes
+from bvh_tpu_torch.traverse import binary_kernel as bk
 from bvh_tpu_torch.traverse import collect as col
 from bvh_tpu_torch.traverse import wide_treelet as wt
+from bvh_tpu_torch.traverse.stack import required_stack_depth
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture(scope="module")
-def scene():
+def tree():
+    """A 20K-triangle quality-high tree (native build, on the CPU), its
+    triangles and 128x128 primary rays on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tris = sponza_class(20_000, seed=1)
     native = NativeBvh3f()
     h = native.build(tris.min(axis=1), tris.max(axis=1), tris.mean(axis=1),
                      quality=2, threads=4)
-    bvh = deserialize_from_bytes(native.to_bytes(h))
+    bvh = deserialize_from_bytes(native.to_bytes(h), device="cpu")
     native.destroy(h)
     tt = torch.from_numpy(tris)
     flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
-    tl = wt.build_wide_treelets(bvh, flat, max_prims=256, device="cuda")
     eye, d, up = scene_camera(tris)
     rays = primary_rays(eye, d, up, 128, 128, device="cuda")
     # zero direction components (+0 x on every 8th ray, -0 z on every
@@ -49,6 +53,24 @@ def scene():
     # form's inf/NaN slab arithmetic
     rays.dir[::8, 0] = 0.0
     rays.dir[::16, 2] = -0.0
+    return bvh, flat, rays
+
+
+@pytest.fixture(scope="module")
+def scene(tree):
+    bvh, flat, rays = tree
+    tl = wt.build_wide_treelets(bvh, flat, max_prims=256, device="cuda")
+    return tl, rays, bvh.prim_ids.cuda()
+
+
+@pytest.fixture(scope="module")
+def two_level(tree):
+    """The same tree cut into treelets of <= 128 prims with a super level
+    of <= 2,048-prim supers."""
+    bvh, flat, rays = tree
+    tl = wt.build_wide_treelets(bvh, flat, max_prims=128, super_prims=2048,
+                                device="cuda")
+    assert tl.sup_table.shape[0] > 1
     return tl, rays, bvh.prim_ids.cuda()
 
 
@@ -189,3 +211,117 @@ def test_group_build_raises_beyond_shared_memory():
     with pytest.raises(ValueError, match=f"P={P}"):
         gk.group_forest_build(pf, sz, dim=3, P=P)
     assert kernels.GROUP_BUILD.launches == before
+
+
+def _b5_tables(bvh, flat):
+    return bk.make_tables(bvh._replace(bounds=bvh.bounds.cuda(),
+                                       index=bvh.index.cuda(),
+                                       prim_ids=bvh.prim_ids.cuda()),
+                          flat.cuda())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("robust", [False, True])
+def test_binary_kernel_equals_plain(tree, any_hit, robust):
+    """B5 with the stack sized exactly (the tree's height + 1)."""
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    packed = wt.pack_rays(rays)
+    kw = dict(any_hit=any_hit, robust=robust,
+              stack_depth=required_stack_depth(bvh))
+    before = kernels.BINARY_TRAVERSE.launches
+    gf, gi = bk.binary_traverse(tables, packed, **kw)
+    assert kernels.BINARY_TRAVERSE.launches == before + 1
+    pf, pi = bk.binary_traverse_ref(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf))
+    assert torch.equal(gi, pi)
+    assert int(torch.isfinite(gf[0]).sum()) > 100 and not gi[3].any()
+
+
+def test_binary_kernel_stack_overflow_flag(tree):
+    """A stack shorter than the tree's height overflows on some rays:
+    kernel and plain version drop the same bottom entries and flag the
+    same rays, and the wrapper raises."""
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    kw = dict(any_hit=False, robust=False, stack_depth=4)
+    gf, gi = bk.binary_traverse(tables, wt.pack_rays(rays), **kw)
+    pf, pi = bk.binary_traverse_ref(tables, wt.pack_rays(rays), **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    assert gi[3].any()
+    with pytest.raises(ValueError, match="overflow"):
+        bk.pallas_intersect_tris(bvh._replace(
+            bounds=bvh.bounds.cuda(), index=bvh.index.cuda(),
+            prim_ids=bvh.prim_ids.cuda()), flat.cuda(), rays, stack_depth=4)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binary_kernel_leaf_root(any_hit):
+    """A one-leaf tree: the root word is a leaf of 3 triangles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.core.types import Bvh
+
+    tris = torch.tensor([[[-1, -1, 2], [1, -1, 2], [0, 1, 2]],
+                         [[-1, -1, 3], [1, -1, 3], [0, 1, 3]],
+                         [[5, 5, 5], [6, 5, 5], [5, 6, 5]]],
+                        dtype=torch.float32)
+    flat = PrecomputedTri.from_tri(Tri(tris[:, 0], tris[:, 1],
+                                       tris[:, 2])).as_flat()
+    bvh = Bvh(bounds=torch.tensor([[-1, 6, -1, 6, 2, 5]],
+                                  dtype=torch.float32),
+              index=torch.tensor([3]), prim_ids=torch.tensor([2, 0, 1]),
+              node_count=1, prim_count=3)
+    tables = _b5_tables(bvh, flat)
+    assert tables.root_word == 3
+    rays = primary_rays([0, 0, 0], [0, 0, 1], [0, 1, 0], 32, 32,
+                        device="cuda")
+    kw = dict(any_hit=any_hit, robust=False, stack_depth=1)
+    gf, gi = bk.binary_traverse(tables, wt.pack_rays(rays), **kw)
+    pf, pi = bk.binary_traverse_ref(tables, wt.pack_rays(rays), **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    hit = torch.isfinite(gf[0])
+    assert 0 < int(hit.sum()) < rays.tmin.numel()
+    assert bool((gi[2] == 1).all()) and bool((gi[1] == 0).all())
+    if not any_hit:  # the nearer plane, z = 2
+        assert torch.allclose(gf[0][hit] * rays.dir[hit, 2],
+                              torch.tensor(2.0, device="cuda"))
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_collect_super_kernel_equals_plain(two_level, robust):
+    """B4 on every (ray, super) pair of phase A, with max_new below the
+    need so the exact count runs past the cap."""
+    tl, rays, _ = two_level
+    T = tl.table.shape[0]
+    portals = wt.collect_and_sort(tl, wt.pack_rays(rays), robust=robust,
+                                  top_stack=tl.top_depth + 1, max_portals=64)
+    kk, rr = torch.nonzero(portals.tid >= T, as_tuple=True)
+    sid = (portals.tid[kk, rr] - T).to(torch.int32)
+    prays = wt.pack_rays(rays)[:, portals.sel[rr]].contiguous()
+    kw = dict(robust=robust, stack_depth=tl.sup_depth + 1, max_new=4)
+    before = kernels.COLLECT_SUPER.launches
+    got = col.collect_super_pairs(tl.sup_table, sid, prays, **kw)
+    assert kernels.COLLECT_SUPER.launches == before + 1
+    want = col.collect_super_pairs_ref(tl.sup_table, sid, prays, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert sid.numel() > 100 and bool((got[2][0] > 4).any())
+    assert not got[2][2].any()
+
+
+@pytest.mark.parametrize("any_hit, robust", [(False, False), (True, False),
+                                             (False, True)])
+def test_two_level_render_equals_plain_render(two_level, any_hit, robust):
+    tl, rays, prim_ids = two_level
+    kw = dict(any_hit=any_hit, robust=robust)
+    before = kernels.COLLECT_SUPER.launches
+    got, diag = wt.wide_treelet_intersect_tris(tl, rays, prim_ids,
+                                               return_diag=True, **kw)
+    assert kernels.COLLECT_SUPER.launches > before and diag["a2_rounds"] > 0
+    want = wt._intersect(tl, rays, prim_ids, col.collect_portals_ref,
+                         wt.traverse_pairs_ref,
+                         collect_super=col.collect_super_pairs_ref, **kw)
+    for f in ("t", "u", "v", "prim_pos", "prim_id"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+    assert 0 < int(torch.isfinite(got.t).sum()) < rays.tmin.numel()

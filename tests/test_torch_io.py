@@ -43,7 +43,7 @@ def test_primary_rays_bit_equal(side):
                                 seed=3 if side == 32 else 0)
     eye, d, up = jscenes.scene_camera(tris)
     jr = j_primary_rays(eye, d, up, side, side)
-    tr = t_primary_rays(eye, d, up, side, side)
+    tr = t_primary_rays(eye, d, up, side, side, device="cpu")
     for f in ("org", "dir", "tmin", "tmax"):
         want = np.asarray(getattr(jr, f))
         got = getattr(tr, f).numpy()
@@ -60,14 +60,14 @@ def test_golden_roundtrip_byte_exact(golden_dir, tmp_path, name, dim, dtype,
                                      nodes):
     path = os.path.join(golden_dir, name)
     raw = open(path, "rb").read()
-    bvh = load_bvh(path, dim=dim, scalar_dtype=dtype)
+    bvh = load_bvh(path, dim=dim, scalar_dtype=dtype, device="cpu")
     assert bvh.node_count == nodes
     assert bvh.index.dtype == torch.int64
     assert serialize_to_bytes(bvh) == raw
     out = str(tmp_path / name)
     save_bvh(bvh, out)
     assert open(out, "rb").read() == raw
-    assert bvh_equal(bvh, deserialize_from_bytes(raw, dim, dtype))
+    assert bvh_equal(bvh, deserialize_from_bytes(raw, dim, dtype, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +82,7 @@ def jax_tree():
 def test_tree_saved_by_bvh_tpu_loads_equal(jax_tree, tmp_path):
     path = str(tmp_path / "jax.bvh")
     j_save_bvh(jax_tree, path)
-    bvh = load_bvh(path)
+    bvh = load_bvh(path, device="cpu")
     nc, pc = int(jax_tree.node_count), int(jax_tree.prim_count)
     assert (bvh.node_count, bvh.prim_count) == (nc, pc)
     assert bvh.bounds.numpy().tobytes() == \
@@ -99,6 +99,6 @@ def test_bvh_from_numpy_equals_v2_path(jax_tree):
     direct = bvh_from_numpy(np.asarray(jax_tree.bounds)[:nc],
                             np.asarray(jax_tree.index)[:nc],
                             np.asarray(jax_tree.prim_ids)[:pc], nc, pc, "cpu")
-    via_bytes = deserialize_from_bytes(j_to_bytes(jax_tree))
+    via_bytes = deserialize_from_bytes(j_to_bytes(jax_tree), device="cpu")
     assert bvh_equal(direct, via_bytes)
     assert serialize_to_bytes(direct) == j_to_bytes(jax_tree)

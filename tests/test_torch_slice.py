@@ -39,12 +39,12 @@ def slice_run():
                      quality=2, threads=2)
     data = native.to_bytes(h)
     native.destroy(h)
-    bvh = deserialize_from_bytes(data)
+    bvh = deserialize_from_bytes(data, device="cpu")
     tt = torch.from_numpy(tris)
     flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
     tl = twt.build_wide_treelets(bvh, flat, max_prims=256)
     eye, d, up = scene_camera(tris)
-    rays = primary_rays(eye, d, up, 32, 32)
+    rays = primary_rays(eye, d, up, 32, 32, device="cpu")
     hit = twt.wide_treelet_intersect_tris(tl, rays, bvh.prim_ids)
     # shadow rays from the hit points toward a point light, built as
     # bench.py builds them; bench's light (above the eye) has no occluder

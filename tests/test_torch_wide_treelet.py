@@ -5,10 +5,11 @@ primary rays, max_prims=256).
 - treelet tables: bit-identical;
 - the whole render against `wide_treelet_intersect_tris(interpret=True)`
   under the rule of tests/test_wide_treelet.py:40-56;
-- capacity overflow handling and the two-level guard.
+- capacity overflow handling.
 
 The two kernels' plain versions are held against bvh_tpu's kernels in
-tests/test_torch_wide_kernels.py, on the same fixture.
+tests/test_torch_wide_kernels.py, and two-level scenes in
+tests/test_torch_two_level.py, on the same fixture.
 
 Why some comparisons carry a tolerance: XLA's CPU backend contracts
 a*b+c into fused multiply-adds inside compiled code (ROADMAP C5), where
@@ -57,7 +58,7 @@ def scene():
     tt = torch.from_numpy(tris)
     tflat = TPre.from_tri(TTri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
     ttl = twt.build_wide_treelets(tbvh, tflat, max_prims=256)
-    trays = t_primary_rays(eye, d, up, 32, 32)
+    trays = t_primary_rays(eye, d, up, 32, 32, device="cpu")
     return dict(jbvh=jbvh, jflat=jflat, jtl=jtl, jrays=jrays, tbvh=tbvh,
                 ttl=ttl, trays=trays, packed=twt.pack_rays(trays))
 
@@ -65,8 +66,7 @@ def scene():
 @pytest.mark.parametrize("max_prims, super_prims", [(256, None), (128, 512)])
 def test_tables_bit_identical(scene, max_prims, super_prims):
     """Including a two-level cut (a super level above the treelets),
-    whose tables the port builds although its render does not take
-    them yet."""
+    whose render is tested in tests/test_torch_two_level.py."""
     if max_prims == 256:
         jtl, ttl = scene["jtl"], scene["ttl"]
     else:
@@ -135,12 +135,6 @@ def test_capacities_auto_raise(scene):
     with pytest.raises(ValueError, match="capacity overflow"):
         twt.wide_treelet_intersect_tris(scene["ttl"], scene["trays"],
                                         auto_caps=False, max_portals=1, **kw)
-
-
-def test_two_level_scene_raises(scene):
-    tl = scene["ttl"]._replace(sup_table=torch.zeros((1, 16, 128)))
-    with pytest.raises(NotImplementedError, match="B4"):
-        twt.wide_treelet_intersect_tris(tl, scene["trays"])
 
 
 def test_wide_treelets_from_numpy(scene):
