@@ -12,12 +12,11 @@ c_api/bvh.h:95-99); intersections are batched, over arrays of rays and a
 vectorized leaf intersector; mutators return the new tree.
 
 `build` and `load` put the tree on the card unless the caller names
-another device; the intersections run on the rays' device. `bvh3f`
-works in full. The other namespaces build through the serial path
-(binned and sweep builders, reinsertion) and traverse through the
-wavefront, which take any dim and float type; their parallel-path build
-needs the level-synchronous `build_minitree` and raises
-NotImplementedError (ROADMAP A9).
+another device; the intersections run on the rays' device, through the
+wavefront, which takes any dim and float type. Every namespace builds
+through `build_default`: `bvh3f`'s parallel path is the fast mini-tree
+build (kernel B3), the other namespaces' is the level-synchronous
+`build_minitree`.
 """
 
 from __future__ import annotations

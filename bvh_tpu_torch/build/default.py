@@ -11,11 +11,11 @@ reference's:
 - the mini-tree config: pruning off for LOW, pruning area ratio 0.01
   for HIGH and 0.1 for MEDIUM (65-73).
 
-The parallel path is `build_minitree_fast` on every device: kernel B3
-on a CUDA device, its plain version on the CPU. `bvh_tpu` documents it
-as bit-identical to its level-synchronous `build_minitree`, which the
-port does not have yet (ROADMAP A9); inputs it cannot take raise
-NotImplementedError.
+The parallel path of float32 3D inputs is `build_minitree_fast` on
+every device: kernel B3 on a CUDA device, its plain version on the CPU.
+Every other dim and float type takes the level-synchronous
+`build_minitree`, which builds the same tree as `build_minitree_fast`
+where both apply (as in `bvh_tpu`, build/default.py:104-111).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import enum
 import torch
 
 from bvh_tpu_torch.build.binned import build_binned
-from bvh_tpu_torch.build.minitree import MiniTreeConfig
+from bvh_tpu_torch.build.minitree import MiniTreeConfig, build_minitree
 from bvh_tpu_torch.build.minitree_fast import build_minitree_fast
 from bvh_tpu_torch.build.reinsertion import ReinsertionConfig, optimize_reinsertion
 from bvh_tpu_torch.build.sah import TopDownConfig
@@ -85,13 +85,10 @@ def build_default(bb_min, bb_max, centers,
                         max_leaf_size=config.max_leaf_size)
 
     if parallel and n >= config.parallel_threshold:
-        if not _use_fast_minitree(bb_min, bb_max, centers):
-            raise NotImplementedError(
-                "the mini-tree build of the port takes float32 3D inputs; "
-                "the level-synchronous build_minitree for other dims and "
-                "dtypes is not ported yet (ROADMAP A9)")
-        bvh = build_minitree_fast(bb_min, bb_max, centers,
-                                  _mini_tree_config(config))
+        build = (build_minitree_fast
+                 if _use_fast_minitree(bb_min, bb_max, centers)
+                 else build_minitree)
+        bvh = build(bb_min, bb_max, centers, _mini_tree_config(config))
         if config.quality == Quality.HIGH:
             bvh = optimize_reinsertion(bvh, ReinsertionConfig())
         return bvh

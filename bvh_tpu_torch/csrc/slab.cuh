@@ -17,20 +17,24 @@ namespace bvh {
 constexpr float kEps = 1.1920928955078125e-07f;   // FLT_EPSILON
 constexpr float kBig = 3.4028234663852886e+38f;   // FLT_MAX
 
-struct RayInv {
-    float org[3], dir[3];
-    float inv[3];      // 1/dir (robust) or the clamped safe inverse (fast)
-    float inv_org[3];  // -inv * org, for the fast form
-    float inv_pad[3];  // inv padded by 2 ulps where finite (robust form)
-    bool neg[3];       // sign bit of dir
+// A ray of `Dim` axes with its precomputed inverses.
+template <int Dim>
+struct RayInvN {
+    float org[Dim], dir[Dim];
+    float inv[Dim];      // 1/dir (robust) or the clamped safe inverse (fast)
+    float inv_org[Dim];  // -inv * org, for the fast form
+    float inv_pad[Dim];  // inv padded by 2 ulps where finite (robust form)
+    bool neg[Dim];       // sign bit of dir
 };
+using RayInv = RayInvN<3>;
 
-__device__ __forceinline__ RayInv make_ray_inv(const float o[3],
-                                               const float d[3],
-                                               bool robust) {
-    RayInv r;
+template <int Dim>
+__device__ __forceinline__ RayInvN<Dim> make_ray_inv(const float (&o)[Dim],
+                                                     const float (&d)[Dim],
+                                                     bool robust) {
+    RayInvN<Dim> r;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < Dim; ++i) {
         r.org[i] = o[i];
         r.dir[i] = d[i];
         float inv = __fdiv_rn(1.0f, d[i]);
@@ -46,9 +50,10 @@ __device__ __forceinline__ RayInv make_ray_inv(const float o[3],
 }
 
 // Near and far plane distances of one box axis.
-__device__ __forceinline__ void slab_axis(const RayInv& r, int i, float lo,
-                                          float hi, bool robust, float& tn,
-                                          float& tf) {
+template <int Dim>
+__device__ __forceinline__ void slab_axis(const RayInvN<Dim>& r, int i,
+                                          float lo, float hi, bool robust,
+                                          float& tn, float& tf) {
     const float nb = r.neg[i] ? hi : lo;
     const float fb = r.neg[i] ? lo : hi;
     if (robust) {

@@ -1,3 +1,4 @@
+from bvh_tpu_torch.geom.sphere import Sphere
 from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
 
-__all__ = ["Tri", "PrecomputedTri"]
+__all__ = ["PrecomputedTri", "Sphere", "Tri"]

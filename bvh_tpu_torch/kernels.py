@@ -117,6 +117,10 @@ _SIGNATURES = {
     # stack_depth, out_f, out_i, stream
     "bvh_binary_traverse_tris": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                  _VP, _VP, _VP],
+    # dim, node_b, node_w, sph, rays, R, root_word, any_hit, robust,
+    # stack_depth, out_f, out_i, stream
+    "bvh_binary_traverse_spheres": [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                    _I, _VP, _VP, _VP],
     # table, T, P, tid, rays, L, any_hit, robust, stack_depth,
     # out_f, out_i, stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
@@ -193,8 +197,9 @@ WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
 GROUP_BUILD = Kernel("group_build", "bvh_group_build")
 COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
 BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
+SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_binary_traverse_spheres")
 KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD, COLLECT_SUPER,
-           BINARY_TRAVERSE)
+           BINARY_TRAVERSE, SPHERE_TRAVERSE)
 
 
 def reset_launch_counts() -> None:

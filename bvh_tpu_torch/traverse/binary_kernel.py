@@ -44,12 +44,10 @@ class BinaryTables(NamedTuple):
     root_word: int
 
 
-def make_tables(bvh: Bvh, tri_flat, permuted: bool = False) -> BinaryTables:
-    """The kernel's tables of `bvh` on the tree's device; `tri_flat`
-    [m, 12] rows by prim id, or by position when `permuted`."""
-    if bvh.dim != 3:
-        raise NotImplementedError("kernel B5 takes 3D trees; other dims "
-                                  "come with kernel B6 (ROADMAP A10)")
+def pair_tables(bvh: Bvh):
+    """The child-pair rows of `bvh` on the tree's device, pair k =
+    children (2k+1, 2k+2): node_b [P, 4*dim] f32 (left box, right box)
+    and node_w [P, 2] int32 (their index words), and the root word."""
     cap = bvh.index.shape[0]
     dev = bvh.bounds.device
     if int(bvh.index[:bvh.node_count].max()) >= 2 ** 31:
@@ -63,10 +61,20 @@ def make_tables(bvh: Bvh, tri_flat, permuted: bool = False) -> BinaryTables:
         torch.float32).contiguous()
     node_w = torch.stack([bvh.index[lc], bvh.index[rc]], 1).to(
         torch.int32).contiguous()
-    flat = torch.as_tensor(tri_flat, device=dev).to(torch.float32)
+    return node_b, node_w, int(bvh.index[0])
+
+
+def make_tables(bvh: Bvh, tri_flat, permuted: bool = False) -> BinaryTables:
+    """The kernel's tables of `bvh` on the tree's device; `tri_flat`
+    [m, 12] rows by prim id, or by position when `permuted`."""
+    if bvh.dim != 3:
+        raise ValueError("kernel B5 takes 3D trees; sphere leaves of other "
+                         "dims take kernel B6 (sphere_kernel.py)")
+    node_b, node_w, root_word = pair_tables(bvh)
+    flat = torch.as_tensor(tri_flat, device=node_b.device).to(torch.float32)
     if not permuted:
         flat = flat[bvh.prim_ids.clamp(0, flat.shape[0] - 1)]
-    return BinaryTables(node_b, node_w, flat.contiguous(), int(bvh.index[0]))
+    return BinaryTables(node_b, node_w, flat.contiguous(), root_word)
 
 
 def binary_traverse_ref(tables: BinaryTables, rays, *, any_hit: bool,

@@ -262,6 +262,27 @@ def make_tri_leaf_fn(bvh: Bvh, tri_flat, permuted: bool = False) -> Callable:
     return leaf_fn
 
 
+def make_sphere_leaf_fn(bvh: Bvh, centers, radii,
+                        permuted: bool = False) -> Callable:
+    """Leaf intersector over spheres, `centers` [m, dim] and `radii` [m]
+    by prim id, or by prim position when `permuted` (sphere.h:31-49
+    through the leaf callback). The hit t is the entry distance t0
+    (clamped to tmin); u carries t0 and v the exit distance t1."""
+    from bvh_tpu_torch.geom.sphere import Sphere
+
+    m = centers.shape[0]
+    n_pos = bvh.prim_ids.shape[0]
+    prim_ids = bvh.prim_ids.to(centers.device)
+
+    def leaf_fn(prim_pos, rays_now):
+        pos = prim_pos.clamp(0, n_pos - 1)
+        idx = pos if permuted else prim_ids[pos].clamp(0, m - 1)
+        t0, t1, hit = Sphere(centers[idx], radii[idx]).intersect(rays_now)
+        return hit, t0, t0, t1
+
+    return leaf_fn
+
+
 def intersect_tris(bvh: Bvh, tri_flat, rays: Ray, *, any_hit: bool = False,
                    robust: bool = False, stack_depth: int = 64,
                    permuted: bool = False,

@@ -64,7 +64,30 @@ exits non-zero):
    A2 round; every 16th ray's t and position equal the plain-version
    driver's; the hit count is the C++ oracle's 77,420 within 4 per
    million; the build stage by stage, the treelet cut and the render
-   timed with CUDA events.
+   timed with CUDA events;
+14. dims, for dim 2, 3 and 4: (a) tools/bench_dims.py's configuration
+   (1,024 spheres, `build_binned` on the card, 262,144 rays) through
+   `pallas_intersect_spheres`, which launches kernel B6: B6 equal to its
+   plain version bit for bit on every ray (closest fast, any-hit
+   robust), the wrapper's coherence-sorted result equal to an unsorted
+   launch, and every 16th ray equal to the wavefront with
+   `make_sphere_leaf_fn` in hit mask and prim id, t bit for bit or
+   within rtol 2e-5; (b) 262,144 spheres, radii scaled so that coverage
+   equals (a), built by `build_default(MEDIUM)` (`build_minitree` in 2D
+   and 4D, kernel B3 in 3D; the tree's invariants), 1,048,576 rays
+   through B6, every 16th equal to the plain version bit for bit; B6,
+   its plain version and the build timed with CUDA events;
+15. float64: bench_dims' 1,024 float64 triangles (16,384 rays), then
+   262,144 (edges scaled by (1024/262144)^(1/3), `build_default(MEDIUM)`
+   = `build_minitree` in float64; 65,536 rays), through the wavefront on
+   the card: every 256th ray's closest t equal to the brute-force
+   Möller–Trumbore minimum over all triangles (a differing ray must be
+   a fast-slab cull);
+16. `build_lbvh` on the 262K scene (invariants, ms and Mprims/s), its
+   B5 render of all primary rays within 4 rays of the high tree's
+   (phase 12), each difference a fast-slab cull; `widen` of the high
+   tree (host) and every 16th primary ray through `intersect_tris_wide`
+   on the card against B5 on the same tree, under the same rule.
 
 The second-to-last lines are a JSON object naming each kernel with its
 launches, error, times and bound, and the card's name and power limit;
@@ -80,6 +103,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_TRIS = 262_144
@@ -109,8 +133,22 @@ PEAK_F32_PER_S = 67e12
 # slab tests (144); a recorded portal came from a node step of 2 boxes
 # that records at most 2 portals (18).
 OPS_BOX, OPS_TRI, OPS_WIDE_STEP, OPS_PORTAL = 18, 40, 144, 18
+# Kernel B6, as lower bounds too: one box axis (two planes, a multiply
+# and an add each, a max and a min) 6; a sphere test 20 beyond its
+# per-axis work (oc, three products and sums: 6 an axis): 2b, r*r, c,
+# b*b, 4a, 4ac, delta, -0.5/a, the root, two sums, two products, a max,
+# a min and two compares.
+OPS_BOX_DIM, OPS_SPHERE = 6, 20
+# Phase 14: tools/bench_dims.py's configuration, then the scale case
+DIMS_M, DIMS_RAYS = 1024, 262_144
+SCALE_M, SCALE_RAYS = 262_144, 1 << 20
+# Phase 15: bench_dims' float64 triangles, then the scale case
+F64_M, F64_RAYS = 1024, 16_384
+F64_BIG, F64_BIG_RAYS = 262_144, 65_536
+F64_CHECK = 256  # every 256th ray against the brute-force minimum
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
+DEV = "cuda"
 
 
 def log(msg: str) -> None:
@@ -332,6 +370,7 @@ def b5_full_phase(tree, flat, rays, whit, tl) -> dict:
                 or res["mask_flips"] + res["t_differs"] > EDGE_BUDGET):
             raise AssertionError(f"B5 on the 262K tree ({form}) disagrees")
         if not robust:
+            out["hit"] = bh
             out["ms"], last = time_ms(lambda: bk.binary_traverse(
                 tables, packed, **kw), 10)
             if not same(last, (kf, ki)):
@@ -498,6 +537,395 @@ def two_level_phase() -> dict:
     if not same_build:
         raise AssertionError("the staged build differs from the CLI's")
     return out
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def events_ms(fn):
+    """fn() between two CUDA events; returns (ms, fn's output)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def sphere_rays(rng, n: int, dim: int):
+    """tools/bench_dims.py's rays: origins U(-3, 3), towards U(-1, 1)."""
+    from bvh_tpu_torch.core.ray import Ray
+
+    org = rng.uniform(-3, 3, (n, dim)).astype(np.float32)
+    tgt = rng.uniform(-1, 1, (n, dim)).astype(np.float32)
+    return Ray.make(torch.from_numpy(org).to(DEV),
+                    torch.from_numpy(tgt - org).to(DEV))
+
+
+def sphere_bound(tables, packed, kf, ki) -> tuple[float, str]:
+    """B6's bound from its own step counts: the pair rows and words of
+    its inner steps and one sphere row per leaf entered (lower bounds)."""
+    dim = tables.dim
+    inner, leaves = int(ki[1].sum()), int(ki[2].sum())
+    fetched = (16 * dim + 8) * inner + 4 * (dim + 1) * leaves
+    return bound(nbytes(packed, kf, ki)
+                 + min(nbytes(tables.node_b, tables.node_w, tables.sph),
+                       fetched),
+                 2 * OPS_BOX_DIM * dim * inner
+                 + (OPS_SPHERE + OPS_BOX_DIM * dim) * leaves)
+
+
+def hit_matches_launch(hit, kf, ki) -> bool:
+    """The wrapper's Hit (rays launched in coherence order and scattered
+    back) against one launch in the caller's order."""
+    from bvh_tpu_torch.core.types import INVALID_PRIM_ID
+
+    pos = ki[0].to(torch.int64)
+    return same((hit.t, hit.u, hit.v), (kf[0], kf[1], kf[2])) and bool(
+        torch.equal(hit.prim_pos, torch.where(pos < 0, INVALID_PRIM_ID, pos)))
+
+
+def check_b6(name, tables, packed, kw, sub=1):
+    """B6 against its plain version on every `sub`th ray, bit for bit in
+    t, u, v, position, both counts and the overflow flag."""
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    kf, ki = sk.sphere_traverse(tables, packed, **kw)
+    psub = packed[:, ::sub].contiguous()
+    pf, pi = sk.sphere_traverse_ref(tables, psub, **kw)
+    kfs, kis = kf[:, ::sub].contiguous(), ki[:, ::sub].contiguous()
+    fin = torch.isfinite(pf[0])
+    err = float((kfs[0][fin] - pf[0][fin]).abs().max()) if fin.any() else 0.0
+    diff = int(((bits(kfs) != bits(pf)).any(0) | (kis != pi).any(0)).sum())
+    log(f"# B6 vs plain, {name}, {kw}: {psub.shape[1]} rays compared, "
+        f"{diff} differ; {int(fin.sum())} hits, {int(ki[1].sum())} inner "
+        f"steps, {int(ki[2].sum())} leaves over {packed.shape[1]} rays")
+    if diff or not (same(kfs, pf) and same(kis, pi)) or bool(ki[3].any()):
+        raise AssertionError(f"B6 and its plain version differ ({name})")
+    return kf, ki, err
+
+
+def dims_phase() -> dict:
+    """Phase 14: kernel B6 at dims 2, 3 and 4, at tools/bench_dims.py's
+    size and at scale."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.build.binned import build_binned
+    from bvh_tpu_torch.build.default import DefaultConfig, Quality, build_default
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from bvh_tpu_torch.traverse.stack import required_stack_depth
+    from bvh_tpu_torch.traverse.wavefront import make_sphere_leaf_fn, traverse
+
+    out = dict(launches=0, err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    t_phase = time.perf_counter()
+    for dim in (2, 3, 4):
+        t_dim = time.perf_counter()
+        # (a) bench_dims' configuration
+        rng = np.random.default_rng(dim)
+        c = torch.from_numpy(rng.uniform(-1, 1, (DIMS_M, dim))
+                             .astype(np.float32)).to(DEV)
+        r = torch.from_numpy(rng.uniform(0.02, 0.1, DIMS_M)
+                             .astype(np.float32)).to(DEV)
+        bvh = build_binned(c - r[:, None], c + r[:, None], c)
+        rays = sphere_rays(rng, DIMS_RAYS, dim)
+        kernels.reset_launch_counts()
+        hit = sk.pallas_intersect_spheres(bvh, c, r, rays)
+        sync()
+        n_launch = kernels.SPHERE_TRAVERSE.launches
+        out["launches"] += n_launch
+        tables = sk.make_tables(bvh, c, r)
+        packed = wt.pack_rays(rays)
+        sd = max(16, required_stack_depth(bvh))
+        kw = dict(any_hit=False, robust=False, stack_depth=sd)
+        kf, ki, err = check_b6(f"{dim}D, {DIMS_M} spheres", tables, packed, kw)
+        check_b6(f"{dim}D, {DIMS_M} spheres", tables, packed,
+                 dict(kw, any_hit=True, robust=True))
+        out["err"] = max(out["err"], err)
+        ms_a, last = time_ms(lambda: sk.sphere_traverse(tables, packed, **kw),
+                             10)
+        if not same(last, (kf, ki)):
+            raise AssertionError("timed B6 output diverged")
+        sub = slice(None, None, SUBSET)
+        wf = traverse(bvh, Ray(*(x[sub] for x in rays)),
+                      make_sphere_leaf_fn(bvh, c, r), stack_depth=sd)
+        t_bits = int((bits(hit.t[sub]) != bits(wf.t)).sum())
+        res = dict(launches=n_launch, hits=int(hit.hit.sum()),
+                   sorted_equals_unsorted=hit_matches_launch(hit, kf, ki),
+                   wavefront_rays=int(wf.t.numel()),
+                   mask_equal=bool(torch.equal(hit.hit[sub], wf.hit)),
+                   prim_equal=bool(torch.equal(hit.prim_id[sub], wf.prim_id)),
+                   t_bits_differ=t_bits)
+        log(f"# {dim}D spheres, bench_dims configuration ({DIMS_M} spheres, "
+            f"{bvh.node_count} nodes, {DIMS_RAYS} rays): {res}; B6 {ms_a:.3f} "
+            f"ms a launch in the caller's order")
+        if not (n_launch and res["sorted_equals_unsorted"]
+                and res["mask_equal"] and res["prim_equal"]):
+            raise AssertionError(f"{dim}D spheres: B6 disagrees")
+        if t_bits:
+            ok = hit.hit[sub]
+            torch.testing.assert_close(hit.t[sub][ok], wf.t[ok], rtol=2e-5,
+                                       atol=0)
+
+        # (b) at scale: coverage as in (a)
+        scale = (DIMS_M / SCALE_M) ** (1.0 / dim)
+        rng = np.random.default_rng(100 + dim)
+        cb = torch.from_numpy(rng.uniform(-1, 1, (SCALE_M, dim))
+                              .astype(np.float32)).to(DEV)
+        rb = torch.from_numpy((rng.uniform(0.02, 0.1, SCALE_M) * scale)
+                              .astype(np.float32)).to(DEV)
+        kernels.reset_launch_counts()
+        build_ms, tb = events_ms(lambda: build_default(
+            cb - rb[:, None], cb + rb[:, None], cb,
+            DefaultConfig(quality=Quality.MEDIUM)))
+        b3 = kernels.GROUP_BUILD.launches
+        inv = tree_checks(tb, SCALE_M)
+        log(f"# {dim}D, {SCALE_M} spheres: build_default(MEDIUM) {build_ms:.3f}"
+            f" ms (CUDA events, first use), B3 launches {b3}; {inv}")
+        if not (inv["prims_once"] and inv["leaves_tile"] and inv["pairs_ok"]
+                and inv["inner_exact"]) or (b3 > 0) != (dim == 3):
+            raise AssertionError(f"{dim}D scale tree breaks an invariant")
+        rays = sphere_rays(rng, SCALE_RAYS, dim)
+        kernels.reset_launch_counts()
+        hit = sk.pallas_intersect_spheres(tb, cb, rb, rays)
+        sync()
+        n_launch = kernels.SPHERE_TRAVERSE.launches
+        out["launches"] += n_launch
+        tables = sk.make_tables(tb, cb, rb)
+        packed = wt.pack_rays(rays)
+        kw = dict(any_hit=False, robust=False,
+                  stack_depth=max(16, required_stack_depth(tb)))
+        kf, ki, err = check_b6(f"{dim}D, {SCALE_M} spheres", tables, packed,
+                               kw, sub=SUBSET)
+        out["err"] = max(out["err"], err)
+        if not (n_launch and hit_matches_launch(hit, kf, ki)):
+            raise AssertionError(f"{dim}D scale: the main path disagrees")
+        order = sk.coherence_order(rays.org, rays.dir)
+        spacked = packed[:, order].contiguous()
+        ms, last = time_ms(lambda: sk.sphere_traverse(tables, spacked, **kw),
+                           10)
+        ms_unsorted, last_u = time_ms(lambda: sk.sphere_traverse(
+            tables, packed, **kw), 10)
+        psub = packed[:, ::SUBSET].contiguous()
+        plain_ms, plast = time_ms(lambda: sk.sphere_traverse_ref(
+            tables, psub, **kw), 1)
+        if not (same(last, (kf[:, order], ki[:, order]))
+                and same(last_u, (kf, ki))
+                and same(plast[0], kf[:, ::SUBSET].contiguous())):
+            raise AssertionError("timed B6 output diverged")
+        b_ms, b_by = sphere_bound(tables, packed, kf, ki)
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms * SUBSET
+        out["bound_ms"] += b_ms
+        out["bound_by"] = b_by
+        log(f"# B6, {dim}D, {SCALE_M} spheres, {SCALE_RAYS} rays: kernel "
+            f"{ms:.3f} ms in coherence order ({ms_unsorted:.3f} ms unsorted), "
+            f"{SCALE_RAYS / ms / 1e3:.3f} Mrays/s; plain {plain_ms:.3f} ms "
+            f"per {psub.shape[1]} rays (x{SUBSET} = {plain_ms * SUBSET:.3f}); "
+            f"bound {b_ms:.4f} ms ({b_by}); {int(hit.hit.sum())} hits; "
+            f"launches {n_launch}; phase {time.perf_counter() - t_dim:.1f} s")
+    log(f"# phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def brute_min_t(flat, rays, chunk: int = 8):
+    """Each ray's closest t over every triangle, by the leaf test
+    (Möller–Trumbore) on all of them."""
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.geom.tri import PrecomputedTri
+
+    tri = PrecomputedTri.from_flat(flat[None])
+    one = torch.ones((1, 1), dtype=flat.dtype, device=flat.device)
+    best = []
+    for a in range(0, rays.org.shape[0], chunk):
+        ray = Ray(rays.org[a:a + chunk, None], rays.dir[a:a + chunk, None],
+                  rays.tmin[a:a + chunk, None] * one,
+                  rays.tmax[a:a + chunk, None] * one)
+        t, _, _, hit = tri.intersect(ray)
+        best.append(torch.where(hit, t, float("inf")).amin(1))
+    return torch.cat(best)
+
+
+def check_closest(name, bvh, flat, rays, t) -> dict:
+    """The closest t of every F64_CHECK-th ray against the brute-force
+    minimum; a differing ray must be a fast-slab cull (the robust
+    traversal finds the minimum, the fast one a later hit or none)."""
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.traverse.wavefront import intersect_tris
+
+    sub = slice(None, None, F64_CHECK)
+    rs = Ray(*(x[sub] for x in rays))
+    want = brute_min_t(flat, rs)
+    got = t[sub]
+    off = torch.nonzero(got != want).squeeze(1)
+    res = dict(rays=int(want.numel()), hits=int(torch.isfinite(want).sum()),
+               differ=int(off.numel()))
+    if off.numel():
+        rob = intersect_tris(bvh, flat, Ray(*(x[off] for x in rs)),
+                             robust=True).t
+        res["culls"] = bool(torch.equal(rob, want[off])
+                            and (got[off] > want[off]).all())
+    log(f"# {name}: closest t of every {F64_CHECK}th ray vs the brute-force "
+        f"minimum over all {flat.shape[0]} triangles: {res}")
+    if off.numel() > EDGE_BUDGET or not res.get("culls", True):
+        raise AssertionError(f"{name}: closest hits wrong")
+    return res
+
+
+def f64_tris(rng, m: int, edge: float):
+    from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
+
+    pts = rng.uniform(-1, 1, (m, 3))
+    e1 = rng.uniform(-edge, edge, (m, 3))
+    e2 = rng.uniform(-edge, edge, (m, 3))
+    t = torch.from_numpy(np.stack([pts, pts + e1, pts + e2], 1)).to(DEV)
+    tri = Tri(t[:, 0], t[:, 1], t[:, 2])
+    mn, mx = tri.get_bbox()
+    return mn, mx, tri.get_center(), PrecomputedTri.from_tri(tri).as_flat()
+
+
+def f64_rays(rng, n: int):
+    from bvh_tpu_torch.core.ray import Ray
+
+    org = torch.from_numpy(rng.uniform(-3, 3, (n, 3))).to(DEV)
+    tgt = torch.from_numpy(rng.uniform(-1, 1, (n, 3))).to(DEV)
+    return Ray.make(org, tgt - org)
+
+
+def f64_phase() -> None:
+    """Phase 15: float64 triangles through the wavefront, at
+    tools/bench_dims.py's size and at scale through build_minitree."""
+    from bvh_tpu_torch.build.binned import build_binned
+    from bvh_tpu_torch.build.default import DefaultConfig, Quality, build_default
+    from bvh_tpu_torch.traverse.wavefront import intersect_tris
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    mn, mx, cc, flat = f64_tris(rng, F64_M, 0.08)
+    bvh = build_binned(mn, mx, cc)
+    rays = f64_rays(rng, F64_RAYS)
+    ms, hit = events_ms(lambda: intersect_tris(bvh, flat, rays))
+    log(f"# f64, bench_dims' {F64_M} triangles, {F64_RAYS} rays: wavefront "
+        f"{ms:.3f} ms (CUDA events), {int(hit.hit.sum())} hits, t "
+        f"{hit.t.dtype}, tree {bvh.bounds.dtype}")
+    if hit.t.dtype != torch.float64 or bvh.bounds.dtype != torch.float64:
+        raise AssertionError("the f64 path lost its precision")
+    check_closest("f64 bench_dims", bvh, flat, rays, hit.t)
+
+    rng = np.random.default_rng(8)
+    edge = 0.08 * (F64_M / F64_BIG) ** (1.0 / 3.0)
+    mn, mx, cc, flat = f64_tris(rng, F64_BIG, edge)
+    build_ms, tb = events_ms(lambda: build_default(
+        mn, mx, cc, DefaultConfig(quality=Quality.MEDIUM)))
+    inv = tree_checks(tb, F64_BIG)
+    log(f"# f64, {F64_BIG} triangles: build_default(MEDIUM) = build_minitree "
+        f"in float64 {build_ms:.3f} ms (CUDA events, first use); index words "
+        f"{tb.index.dtype}; {inv}")
+    if not (inv["prims_once"] and inv["leaves_tile"] and inv["pairs_ok"]
+            and inv["inner_exact"]) or tb.bounds.dtype != torch.float64:
+        raise AssertionError("the f64 scale tree breaks an invariant")
+    rays = f64_rays(rng, F64_BIG_RAYS)
+    ms, hit = events_ms(lambda: intersect_tris(tb, flat, rays))
+    log(f"# f64, {F64_BIG} triangles, {F64_BIG_RAYS} rays: wavefront "
+        f"{ms:.3f} ms (CUDA events), {int(hit.hit.sum())} hits")
+    check_closest("f64 scale", tb, flat, rays, hit.t)
+    log(f"# phase 15 in {time.perf_counter() - t0:.1f} s")
+
+
+def cull_pair(a_fast, b_fast, a_rob, b_rob) -> bool:
+    """Rays whose fast-form hits differ between two trees are fast-slab
+    culls: both trees' robust t equal, each fast t that t or later (a
+    miss included), and one of them that t."""
+    return bool(same(a_rob, b_rob) and (a_fast >= a_rob).all()
+                and (b_fast >= a_rob).all()
+                and ((bits(a_fast) == bits(a_rob))
+                     | (bits(b_fast) == bits(a_rob))).all())
+
+
+def lbvh_wide_phase(tree, flat, rays, high_hit, mn, mx, cc) -> None:
+    """Phase 16: build_lbvh on the 262K scene, its B5 render against the
+    high tree's (phase 12), and the 8-wide layout of the high tree."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.build.lbvh import build_lbvh
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.traverse import binary_kernel as bk
+    from bvh_tpu_torch.traverse import wide
+    from bvh_tpu_torch.traverse.stack import max_depth
+
+    t0 = time.perf_counter()
+    lb = build_lbvh(mn, mx, cc)
+    sync()
+    inv = tree_checks(lb, N_TRIS)
+    ms, last = time_ms(lambda: build_lbvh(mn, mx, cc), 5)
+    if not same_tree(last, lb):
+        raise AssertionError("timed lbvh build diverged")
+    log(f"# build_lbvh, sponza_class({N_TRIS}): {ms:.3f} ms, "
+        f"{N_TRIS / ms / 1e3:.3f} Mprims/s (CUDA events, 5 builds after one); "
+        f"{inv}")
+    if not (inv["prims_once"] and inv["leaves_tile"] and inv["pairs_ok"]
+            and inv["inner_exact"] and lb.node_count == 2 * N_TRIS - 1):
+        raise AssertionError("the lbvh tree breaks an invariant")
+
+    dflat = flat.to(DEV)
+    kernels.reset_launch_counts()
+    lh = bk.pallas_intersect_tris(lb, dflat, rays)
+    sync()
+    launches = kernels.BINARY_TRAVERSE.launches
+    hl, hh = torch.isfinite(lh.t), torch.isfinite(high_hit.t)
+    t_diff = hl & hh & (bits(lh.t) != bits(high_hit.t))
+    off = torch.nonzero((hl != hh) | t_diff).squeeze(1)
+    res = dict(launches=launches, hits=int(hl.sum()), high_hits=int(hh.sum()),
+               inner_steps=int(lh.stats.visited_nodes.sum()),
+               high_inner_steps=int(high_hit.stats.visited_nodes.sum()),
+               mask_flips=int((hl != hh).sum()), t_differs=int(t_diff.sum()),
+               prim_id_ties=int((hl & hh & ~t_diff
+                                 & (lh.prim_id != high_hit.prim_id)).sum()))
+    if off.numel():
+        ro = Ray(*(x[off] for x in rays))
+        res["culls"] = cull_pair(
+            lh.t[off], high_hit.t[off],
+            bk.pallas_intersect_tris(lb, dflat, ro, robust=True).t,
+            bk.pallas_intersect_tris(tree, dflat, ro, robust=True).t)
+    log(f"# B5 render of the lbvh tree vs the high tree's, {lh.t.numel()} "
+        f"rays: {res}")
+    if (not launches or off.numel() > EDGE_BUDGET
+            or not res.get("culls", True)):
+        raise AssertionError("the lbvh tree's render disagrees")
+
+    t1 = time.perf_counter()
+    w = wide.widen(tree)
+    widen_s = time.perf_counter() - t1
+    sub = slice(None, None, SUBSET)
+    rs = Ray(*(x[sub] for x in rays))
+    sd = 7 * max_depth(tree) + 1
+    wms, wh = events_ms(lambda: wide.intersect_tris_wide(w, dflat, rs,
+                                                         stack_depth=sd))
+    hs = high_hit.t[sub]
+    hw, hb = torch.isfinite(wh.t), torch.isfinite(hs)
+    t_diff = hw & hb & (bits(wh.t) != bits(hs))
+    off = torch.nonzero((hw != hb) | t_diff).squeeze(1)
+    res = dict(wide_nodes=w.node_count, widen_s=round(widen_s, 3),
+               rays=int(hs.numel()), hits=int(hw.sum()),
+               mask_flips=int((hw != hb).sum()), t_differs=int(t_diff.sum()),
+               prim_id_ties=int((hw & hb & ~t_diff
+                                 & (wh.prim_id != high_hit.prim_id[sub]))
+                                .sum()))
+    if off.numel():
+        ro = Ray(*(x[off] for x in rs))
+        res["culls"] = cull_pair(
+            wh.t[off], hs[off],
+            wide.intersect_tris_wide(w, dflat, ro, robust=True,
+                                     stack_depth=sd).t,
+            bk.pallas_intersect_tris(tree, dflat, ro, robust=True).t)
+    log(f"# widen of the high tree (host): {widen_s * 1e3:.1f} ms; "
+        f"intersect_tris_wide on every {SUBSET}th primary ray: {wms:.3f} ms "
+        f"(CUDA events, plain torch); vs B5 on the same tree: {res}")
+    if off.numel() > EDGE_BUDGET or not res.get("culls", True):
+        raise AssertionError("the wide traversal disagrees with B5")
+    log(f"# phase 16 in {time.perf_counter() - t0:.1f} s")
 
 
 def run() -> dict:
@@ -870,10 +1298,16 @@ def run() -> dict:
     # ---- San-Miguel-class two-level render through B4 ----------------
     os.makedirs(OUT_DIR, exist_ok=True)
     b5 = cornell_cli_phase()
-    b5_full_phase(tree, flat, rays, hit, tl)
+    high_hit = b5_full_phase(tree, flat, rays, hit, tl)["hit"]
     del tl, ntl, nhit, shit, srays, spacked
     torch.cuda.empty_cache()
     b4 = two_level_phase()
+    torch.cuda.empty_cache()
+
+    # ---- 14-16. dims through B6, float64, lbvh and the wide layout ----
+    b6 = dims_phase()
+    f64_phase()
+    lbvh_wide_phase(tree, flat, rays, high_hit, mn, mx, cc)
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n):
@@ -885,8 +1319,8 @@ def run() -> dict:
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                 "library_ms": None}
 
-    err["b5"], err["b4"] = b5["err"], b4["err"]
-    for key, d_ in (("b5", b5), ("b4", b4)):
+    err["b5"], err["b4"], err["b6"] = b5["err"], b4["err"], b6["err"]
+    for key, d_ in (("b5", b5), ("b4", b4), ("b6", b6)):
         timings[f"{key}_kernel_ms"] = d_["ms"]
         timings[f"{key}_plain_ms"] = d_["plain_ms"]
         bounds[key] = (d_["bound_ms"], d_["bound_by"])
@@ -906,6 +1340,9 @@ def run() -> dict:
         entry(kernels.BINARY_TRAVERSE,
               "bvh_tpu_torch/csrc/binary_traverse.cu",
               "bvh_tpu/traverse/pallas_kernel.py:93", "b5", b5["launches"]),
+        entry(kernels.SPHERE_TRAVERSE,
+              "bvh_tpu_torch/csrc/binary_traverse.cu",
+              "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"]),
     ]}
 
 

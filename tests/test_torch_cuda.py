@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-CUDA device: the render kernels (B1, B2) and the binary traversal (B5)
-in every mode (closest/any-hit x fast/robust), phase A2 (B4) and the
-two-level render, and the group build (B3) on groups that reach each of
-its branches. They skip where there is no device. The repository's conftest imports jax, which
+CUDA device: the render kernels (B1, B2), the binary traversal (B5) and
+the sphere traversal at dims 2, 3 and 4 (B6) in every mode
+(closest/any-hit x fast/robust), phase A2 (B4) and the two-level
+render, and the group build (B3) on groups that reach each of its
+branches. They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -325,3 +326,74 @@ def test_two_level_render_equals_plain_render(two_level, any_hit, robust):
     for f in ("t", "u", "v", "prim_pos", "prim_id"):
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
     assert 0 < int(torch.isfinite(got.t).sum()) < rays.tmin.numel()
+
+
+@pytest.fixture(scope="module", params=[2, 3, 4], ids=lambda d: f"dim{d}")
+def spheres(request):
+    """4,096 spheres of dim 2, 3 or 4 (a tree past bvh_tpu's 2,048-prim
+    limit), `build_binned` on the card, and 8,192 rays, some with zero
+    direction components."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.build.binned import build_binned
+
+    dim = request.param
+    rng = np.random.default_rng(dim)
+    c = torch.from_numpy(rng.uniform(-1, 1, (4096, dim)).astype(np.float32))
+    r = torch.from_numpy(rng.uniform(0.01, 0.05, 4096).astype(np.float32))
+    c, r = c.cuda(), r.cuda()
+    bvh = build_binned(c - r[:, None], c + r[:, None], c)
+    org = torch.from_numpy(rng.uniform(-3, 3, (8192, dim)).astype(np.float32))
+    tgt = torch.from_numpy(rng.uniform(-1, 1, (8192, dim)).astype(np.float32))
+    d = tgt - org
+    d[::8, 0] = 0.0
+    d[::16, dim - 1] = -0.0
+    rays = Ray.make(org.cuda(), d.cuda())
+    assert bvh.prim_ids.shape[0] > 2048
+    return bvh, c, r, rays
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("robust", [False, True])
+def test_sphere_kernel_equals_plain(spheres, any_hit, robust):
+    """B6 against its plain version, bit for bit in every output."""
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    bvh, c, r, rays = spheres
+    tables = sk.make_tables(bvh, c, r)
+    packed = wt.pack_rays(rays)
+    kw = dict(any_hit=any_hit, robust=robust,
+              stack_depth=required_stack_depth(bvh))
+    before = kernels.SPHERE_TRAVERSE.launches
+    gf, gi = sk.sphere_traverse(tables, packed, **kw)
+    assert kernels.SPHERE_TRAVERSE.launches == before + 1
+    pf, pi = sk.sphere_traverse_ref(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf))
+    assert torch.equal(gi, pi)
+    assert int(torch.isfinite(gf[0]).sum()) > 100 and not gi[3].any()
+    hit = sk.pallas_intersect_spheres(bvh, c, r, rays, any_hit=any_hit,
+                                      robust=robust)
+    assert int(hit.hit.sum()) == int(torch.isfinite(gf[0]).sum())
+
+
+def test_sphere_kernel_stack_one_short(spheres):
+    """With the stack one entry shorter than the rays need, kernel and
+    plain version drop the same bottom entries and flag the same rays,
+    and the wrapper raises."""
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    bvh, c, r, rays = spheres
+    tables = sk.make_tables(bvh, c, r)
+    packed = wt.pack_rays(rays)
+    need = required_stack_depth(bvh)
+    while need > 1 and not sk.sphere_traverse(
+            tables, packed, any_hit=False, robust=False,
+            stack_depth=need - 1)[1][3].any():
+        need -= 1
+    kw = dict(any_hit=False, robust=False, stack_depth=need - 1)
+    gf, gi = sk.sphere_traverse(tables, packed, **kw)
+    pf, pi = sk.sphere_traverse_ref(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    assert gi[3].any()
+    with pytest.raises(ValueError, match="overflow"):
+        sk.pallas_intersect_spheres(bvh, c, r, rays, stack_depth=need - 1)

@@ -7,7 +7,8 @@ reinsertion for HIGH). On the CPU bvh_tpu takes its level-synchronous
 plain version; bvh_tpu documents the two as bit-identical
 (build/default.py:63-67), and the port's build equals bvh_tpu's bit for
 bit with XLA's FMA rounding (`xla_rounding`, see
-tests/test_torch_build.py).
+tests/test_torch_build.py). 2D boxes take the port's `build_minitree`
+on the parallel path, as in bvh_tpu.
 """
 
 import jax.numpy as jnp
@@ -82,9 +83,19 @@ def test_build_default_serial_overload(reference, xla_rounding):
     assert torch.equal(got.bounds, want.bounds)
 
 
-def test_build_default_parallel_needs_float32_3d():
-    """The parallel path of other dims and dtypes needs the
-    level-synchronous build_minitree (ROADMAP A9)."""
-    x = torch.zeros((2048, 2), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_default(x, x + 1, x + 0.5)
+def test_build_default_parallel_needs_float32_3d(monkeypatch):
+    """The parallel path of other dims and dtypes: float32 2D boxes past
+    parallel_threshold take the level-synchronous build_minitree and give
+    bvh_tpu's tree bit for bit (XLA's FMA rounding, `fma_any`)."""
+    from bvh_tpu_torch.core import utils
+    from test_torch_flat import _boxes, fma_any
+
+    monkeypatch.setattr(utils, "fast_mul_add", fma_any)
+    arrays = _boxes(1100, 2, np.float32, seed=1)
+    jbvh = j_build_default(*(jnp.asarray(a) for a in arrays),
+                           JDefaultConfig(quality=JQuality.MEDIUM))
+    tbvh = build_default(*(torch.from_numpy(a) for a in arrays),
+                         DefaultConfig(quality=Quality.MEDIUM))
+    assert tbvh.dim == 2 and tbvh.node_count > 1100
+    assert same_nodes(jbvh, tbvh)
+    check_bvh_invariants(tbvh, 1100)

@@ -80,10 +80,11 @@ def test_bvh3f_build_matches(cornell, quality, xla_rounding):
     ("bvh2f", 2, np.float32), ("bvh2d", 2, np.float64),
     ("bvh3d", 3, np.float64)])
 def test_other_namespaces_serial_build(name, dim, dtype, monkeypatch):
-    """Below parallel_threshold every namespace builds (the binned and
-    sweep builders take any dim and float type); above it the parallel
-    path needs build_minitree (ROADMAP A9). Both dtypes get XLA's FMA
-    rounding."""
+    """Below parallel_threshold every namespace builds through the
+    binned and sweep builders, which take any dim and float type; above
+    it through the parallel path, the level-synchronous build_minitree
+    (at LOW, so without reinsertion). Every tree is bvh_tpu's; both
+    dtypes get XLA's FMA rounding."""
     monkeypatch.setattr(utils, "fast_mul_add", fma_any)
     mn, mx, c = _boxes(300, dim, dtype, seed=dim)
     japi, tapi = getattr(jflat, name), getattr(tflat, name)
@@ -96,9 +97,13 @@ def test_other_namespaces_serial_build(name, dim, dtype, monkeypatch):
                                   else torch.float32)
         assert same_tree(j, t), q
     big = _boxes(1100, dim, dtype, seed=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tapi.build(*big, device="cpu")
-    assert tapi.build(*big, parallel=False, device="cpu").prim_count == 1100
+    low = dict(quality=Quality.LOW)
+    j = japi.build(*(jnp.asarray(a) for a in big),
+                   jflat.BuildConfig(quality=JQuality.LOW))
+    t = tapi.build(*big, tflat.BuildConfig(**low), device="cpu")
+    assert same_nodes(j, t) and t.node_count > 1100
+    assert tapi.build(*big, tflat.BuildConfig(**low), parallel=False,
+                      device="cpu").prim_count == 1100
 
 
 def test_save_load_and_accessors(cornell, tmp_path):
