@@ -1,6 +1,7 @@
-// Ray-box slab arithmetic shared by the portal-collect and wide-treelet
-// kernels, rounded exactly as the reference kernels round it
-// (bvh_tpu/traverse/collect.py:44-56, wide_treelet.py:757-769).
+// Ray-box slab arithmetic shared by the portal-collect, traversal and
+// probe kernels, rounded exactly as the reference kernels round it
+// (bvh_tpu/traverse/collect.py:44-56, wide_treelet.py:757-769), and the
+// 8-way sorting network of the wide-node step.
 //
 // Every product and sum goes through the _rn intrinsics, which nvcc
 // never contracts into an FMA, so the kernels agree with their plain
@@ -80,6 +81,32 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float nan_min(float a, float b) {
     return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a < b ? a : b);
+}
+
+// The 19-comparator Batcher odd-even merge network of the reference's
+// `_sort8` (bvh_tpu/traverse/wide_treelet.py:713-731), strict >: sorts
+// 8 keys ascending and carries their words. Not stable.
+__device__ __forceinline__ void cmp_swap(float* k, int* w, int a, int b) {
+    if (k[a] > k[b]) {
+        const float kt = k[a];
+        k[a] = k[b];
+        k[b] = kt;
+        const int wt = w[a];
+        w[a] = w[b];
+        w[b] = wt;
+    }
+}
+
+__device__ __forceinline__ void sort8(float* k, int* w) {
+    cmp_swap(k, w, 0, 1); cmp_swap(k, w, 2, 3);
+    cmp_swap(k, w, 4, 5); cmp_swap(k, w, 6, 7);
+    cmp_swap(k, w, 0, 2); cmp_swap(k, w, 1, 3);
+    cmp_swap(k, w, 4, 6); cmp_swap(k, w, 5, 7);
+    cmp_swap(k, w, 1, 2); cmp_swap(k, w, 5, 6);
+    cmp_swap(k, w, 0, 4); cmp_swap(k, w, 1, 5);
+    cmp_swap(k, w, 2, 6); cmp_swap(k, w, 3, 7);
+    cmp_swap(k, w, 2, 4); cmp_swap(k, w, 3, 5);
+    cmp_swap(k, w, 1, 2); cmp_swap(k, w, 3, 4); cmp_swap(k, w, 5, 6);
 }
 
 }  // namespace bvh

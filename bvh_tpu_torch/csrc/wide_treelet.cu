@@ -28,6 +28,16 @@
 // per-thread local array. A transposed table layout, so that a column
 // is contiguous, is left to a later change.
 //
+// Ablation variants (tools/ablate_kernel.py:147-174, ported as
+// bvh_tpu_torch/tools/ablate_kernel.py): `kAblate` is a bitmask of code
+// to leave out, for measuring what each part of a step costs: kNoQuad
+// skips the 4 Möller–Trumbore tests of a quad step, kNoSort the
+// `_sort8` network (children stay in slot order), kNoPush the pushes.
+// The render's four instantiations have kAblate = 0, so every `if
+// constexpr` below keeps its code and they compile as before; the
+// variants are right only where the skipped code has no effect (the
+// tool's chain table) and are launched by `bvh_wide_treelet_ablate`.
+//
 // Exactness: slab max/min propagate NaN as the reference's
 // jnp.maximum/minimum do (:920-921, ROADMAP C6; fmaxf/fminf would
 // swallow it and turn robust-mode 0*inf misses into hits); sums of
@@ -45,6 +55,7 @@ namespace {
 
 constexpr int kStackMax = BVH_WIDE_STACK_MAX;  // set by kernels.py
 constexpr int kRows = 64;
+constexpr int kNoQuad = 1, kNoSort = 2, kNoPush = 4;
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
@@ -57,31 +68,7 @@ __device__ __forceinline__ float cross_term(float a, float b, float c,
     return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
 
-// The reference's Batcher odd-even merge network (:713-731), strict >.
-__device__ __forceinline__ void cmp_swap(float* k, int* w, int a, int b) {
-    if (k[a] > k[b]) {
-        const float kt = k[a];
-        k[a] = k[b];
-        k[b] = kt;
-        const int wt = w[a];
-        w[a] = w[b];
-        w[b] = wt;
-    }
-}
-
-__device__ __forceinline__ void sort8(float* k, int* w) {
-    cmp_swap(k, w, 0, 1); cmp_swap(k, w, 2, 3);
-    cmp_swap(k, w, 4, 5); cmp_swap(k, w, 6, 7);
-    cmp_swap(k, w, 0, 2); cmp_swap(k, w, 1, 3);
-    cmp_swap(k, w, 4, 6); cmp_swap(k, w, 5, 7);
-    cmp_swap(k, w, 1, 2); cmp_swap(k, w, 5, 6);
-    cmp_swap(k, w, 0, 4); cmp_swap(k, w, 1, 5);
-    cmp_swap(k, w, 2, 6); cmp_swap(k, w, 3, 7);
-    cmp_swap(k, w, 2, 4); cmp_swap(k, w, 3, 5);
-    cmp_swap(k, w, 1, 2); cmp_swap(k, w, 3, 4); cmp_swap(k, w, 5, 6);
-}
-
-template <bool kAnyHit, bool kRobust>
+template <bool kAnyHit, bool kRobust, int kAblate>
 __global__ void wide_treelet_kernel(const float* __restrict__ table, int P,
                                     const int* __restrict__ tid,
                                     const float* __restrict__ rays, int L,
@@ -115,40 +102,43 @@ __global__ void wide_treelet_kernel(const float* __restrict__ table, int P,
         int new_top = 0;
         if (leaf_rem > 0) {
             // ---- quad leaf step: 4 sequential Möller–Trumbore tests
-            const float* c = tab + leaf_cur;
+            if constexpr ((kAblate & kNoQuad) == 0) {
+                const float* c = tab + leaf_cur;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                float q[13];
+                for (int j = 0; j < 4; ++j) {
+                    float q[13];
 #pragma unroll
-                for (int r = 0; r < 13; ++r) q[r] = __ldg(c + (j * 13 + r) * P);
-                const int gpos = static_cast<int>(q[12]);
-                const float cv0 = __fsub_rn(q[0], o[0]);
-                const float cv1 = __fsub_rn(q[1], o[1]);
-                const float cv2 = __fsub_rn(q[2], o[2]);
-                const float r0 = cross_term(d[1], cv2, d[2], cv1);
-                const float r1 = cross_term(d[2], cv0, d[0], cv2);
-                const float r2 = cross_term(d[0], cv1, d[1], cv0);
-                const float inv_det =
-                    __fdiv_rn(1.0f, dot3(q[9], q[10], q[11], d[0], d[1], d[2]));
-                const float uu =
-                    __fmul_rn(dot3(r0, r1, r2, q[6], q[7], q[8]), inv_det);
-                const float vv =
-                    __fmul_rn(dot3(r0, r1, r2, q[3], q[4], q[5]), inv_det);
-                const float ww = __fsub_rn(__fsub_rn(1.0f, uu), vv);
-                const float tt =
-                    __fmul_rn(dot3(q[9], q[10], q[11], cv0, cv1, cv2), inv_det);
-                const bool hit = uu >= -bvh::kEps && vv >= -bvh::kEps &&
-                                 ww >= -bvh::kEps && tt >= tmin &&
-                                 tt <= tmax && gpos >= 0 && !done_by_hit;
-                if (hit) {
-                    best_t = tt;
-                    if (kAnyHit)
-                        done_by_hit = true;
-                    else
-                        tmax = tt;
-                    best_u = uu;
-                    best_v = vv;
-                    best_pos = gpos;
+                    for (int r = 0; r < 13; ++r)
+                        q[r] = __ldg(c + (j * 13 + r) * P);
+                    const int gpos = static_cast<int>(q[12]);
+                    const float cv0 = __fsub_rn(q[0], o[0]);
+                    const float cv1 = __fsub_rn(q[1], o[1]);
+                    const float cv2 = __fsub_rn(q[2], o[2]);
+                    const float r0 = cross_term(d[1], cv2, d[2], cv1);
+                    const float r1 = cross_term(d[2], cv0, d[0], cv2);
+                    const float r2 = cross_term(d[0], cv1, d[1], cv0);
+                    const float inv_det = __fdiv_rn(
+                        1.0f, dot3(q[9], q[10], q[11], d[0], d[1], d[2]));
+                    const float uu =
+                        __fmul_rn(dot3(r0, r1, r2, q[6], q[7], q[8]), inv_det);
+                    const float vv =
+                        __fmul_rn(dot3(r0, r1, r2, q[3], q[4], q[5]), inv_det);
+                    const float ww = __fsub_rn(__fsub_rn(1.0f, uu), vv);
+                    const float tt = __fmul_rn(
+                        dot3(q[9], q[10], q[11], cv0, cv1, cv2), inv_det);
+                    const bool hit = uu >= -bvh::kEps && vv >= -bvh::kEps &&
+                                     ww >= -bvh::kEps && tt >= tmin &&
+                                     tt <= tmax && gpos >= 0 && !done_by_hit;
+                    if (hit) {
+                        best_t = tt;
+                        if (kAnyHit)
+                            done_by_hit = true;
+                        else
+                            tmax = tt;
+                        best_u = uu;
+                        best_v = vv;
+                        best_pos = gpos;
+                    }
                 }
             }
             ++leaf_cur;
@@ -182,18 +172,20 @@ __global__ void wide_treelet_kernel(const float* __restrict__ table, int P,
                 key[ch] = hit ? (kAnyHit ? static_cast<float>(ch) : t0) : inf;
                 word[ch] = static_cast<int>(__ldg(c + (48 + ch) * P));
             }
-            sort8(key, word);
+            if constexpr ((kAblate & kNoSort) == 0) bvh::sort8(key, word);
             descend = n_hits > 0;
             new_top = word[0];
             // push far to near, so the nearest remaining pops first
-            for (int j = n_hits - 1; j >= 1; --j) {
-                if (sp < stack_depth) {
-                    stack[sp++] = word[j];
-                } else {
-                    for (int k = 0; k + 1 < stack_depth; ++k)
-                        stack[k] = stack[k + 1];
-                    stack[stack_depth - 1] = word[j];
-                    ovf = 1;
+            if constexpr ((kAblate & kNoPush) == 0) {
+                for (int j = n_hits - 1; j >= 1; --j) {
+                    if (sp < stack_depth) {
+                        stack[sp++] = word[j];
+                    } else {
+                        for (int k = 0; k + 1 < stack_depth; ++k)
+                            stack[k] = stack[k + 1];
+                        stack[stack_depth - 1] = word[j];
+                        ovf = 1;
+                    }
                 }
             }
         }
@@ -218,12 +210,12 @@ __global__ void wide_treelet_kernel(const float* __restrict__ table, int P,
     out_i[3 * L + i] = ovf;
 }
 
-template <bool kAnyHit, bool kRobust>
+template <bool kAnyHit, bool kRobust, int kAblate = 0>
 void launch(const float* table, int P, const int* tid, const float* rays,
             int L, int stack_depth, float* out_f, int* out_i,
             cudaStream_t stream) {
     const int block = 128;
-    wide_treelet_kernel<kAnyHit, kRobust>
+    wide_treelet_kernel<kAnyHit, kRobust, kAblate>
         <<<(L + block - 1) / block, block, 0, stream>>>(
             table, P, tid, rays, L, stack_depth, out_f, out_i);
 }
@@ -250,6 +242,31 @@ extern "C" int bvh_wide_treelet_traverse(const float* table, int T, int P,
             launch<false, true>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
         else
             launch<false, false>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The ablation variants of the closest-hit, fast-form kernel, as
+// tools/ablate_kernel.py runs them: `variant` is kNoQuad (1), kNoSort
+// (2) or kNoPush (4); arguments and outputs as
+// bvh_wide_treelet_traverse. Returns cudaErrorInvalidValue for another
+// variant, else cudaGetLastError() after the launch.
+extern "C" int bvh_wide_treelet_ablate(const float* table, int T, int P,
+                                       const int* tid, const float* rays,
+                                       int L, int variant, int stack_depth,
+                                       float* out_f, int* out_i,
+                                       void* stream) {
+    (void)T;
+    auto s = static_cast<cudaStream_t>(stream);
+    if (variant != kNoQuad && variant != kNoSort && variant != kNoPush)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (L > 0) {
+        if (variant == kNoQuad)
+            launch<false, false, kNoQuad>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
+        else if (variant == kNoSort)
+            launch<false, false, kNoSort>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
+        else
+            launch<false, false, kNoPush>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -36,18 +36,21 @@ CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
                 os.path.join(CSRC, "wide_treelet.cu"),
                 os.path.join(CSRC, "group_build.cu"),
-                os.path.join(CSRC, "binary_traverse.cu")]
+                os.path.join(CSRC, "binary_traverse.cu"),
+                os.path.join(CSRC, "probes.cu")]
 CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
 # Stack capacities compiled into the kernels; a wrapper raises when
 # asked for a deeper stack.
 TOP_STACK_MAX = 64
 WIDE_STACK_MAX = 256
 BINARY_STACK_MAX = 128
+PROBE_STACK_MAX = 32
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v", f"-DBVH_TOP_STACK_MAX={TOP_STACK_MAX}",
               f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}",
-              f"-DBVH_BINARY_STACK_MAX={BINARY_STACK_MAX}"]
+              f"-DBVH_BINARY_STACK_MAX={BINARY_STACK_MAX}",
+              f"-DBVH_PROBE_STACK_MAX={PROBE_STACK_MAX}"]
 
 
 def build_shared_library(command, sources, hashed, stem: str) -> str:
@@ -125,6 +128,13 @@ _SIGNATURES = {
     # out_f, out_i, stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
                                   _VP, _VP, _VP],
+    # table, T, P, tid, rays, L, variant, stack_depth, out_f, out_i, stream
+    "bvh_wide_treelet_ablate": [_VP, _I, _I, _VP, _VP, _I, _I, _I,
+                                _VP, _VP, _VP],
+    # table, C, rays, B, sort8, chains, stack_depth, iters, out, stream
+    "bvh_wide_step_probe": [_VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    # table, int8, rows, P, idx, B, iters, out, stream
+    "bvh_column_fetch": [_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP],
     # pf, sizes, G, P, NCAP, min_leaf, max_leaf, log_cluster, cost_ratio,
     # nbf, nbi, src, cnt, stream
     "bvh_group_build": [_VP, _VP, _I, _I, _I, _I, _I, _I, _F,
@@ -198,8 +208,13 @@ GROUP_BUILD = Kernel("group_build", "bvh_group_build")
 COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
 BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
 SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_binary_traverse_spheres")
+# the profiling tools' kernels (bvh_tpu_torch/tools/)
+WIDE_TREELET_ABLATE = Kernel("traverse_pairs_ablate", "bvh_wide_treelet_ablate")
+WIDE_STEP_PROBE = Kernel("wide_step_probe", "bvh_wide_step_probe")
+COLUMN_FETCH = Kernel("column_fetch", "bvh_column_fetch")
 KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD, COLLECT_SUPER,
-           BINARY_TRAVERSE, SPHERE_TRAVERSE)
+           BINARY_TRAVERSE, SPHERE_TRAVERSE, WIDE_TREELET_ABLATE,
+           WIDE_STEP_PROBE, COLUMN_FETCH)
 
 
 def reset_launch_counts() -> None:

@@ -58,6 +58,9 @@ ROWS = 64  # table rows: 8*6 bounds + 8 words | 4 * (12 tri values + gpos)
 # (wide_treelet_perf, wide_treelet.py:2064)
 PORTALS_PER_ROUND = 4
 K2 = 2  # supers expanded per ready ray and A2 round (the reference's k2)
+# kernel B1's ablation mask (csrc/wide_treelet.cu, tools/ablate_kernel.py):
+# code a variant leaves out
+ABLATE_NO_QUAD, ABLATE_NO_SORT, ABLATE_NO_PUSH = 1, 2, 4
 
 
 class WideTreelets(NamedTuple):
@@ -561,7 +564,7 @@ def _dot3(a, b):
 
 
 def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
-                       stack_depth: int):
+                       stack_depth: int, ablate: int = 0):
     """Plain PyTorch version of the wide traversal kernel: the state
     machine of the reference's `_traverse_core` (wide_treelet.py:741),
     vectorised over [rows, L] tensors, one step per iteration: leaf
@@ -573,7 +576,9 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
     Results are fresh per pair (best t starts at +inf).
     Returns out_f [3, L] f32 (t, u, v; t = +inf on a miss) and
     out_i [4, L] int32 (prim position or -1, active steps, stack
-    high-water mark, sticky overflow flag)."""
+    high-water mark, sticky overflow flag).
+    `ablate`: the kernel's ablation mask (`ABLATE_*`, the plain version
+    of `traverse_pairs_ablate`); 0 in the render."""
     L = tid.shape[0]
     dev = rays.device
     i64, f32 = torch.int64, torch.float32
@@ -612,7 +617,7 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
 
         # ---- quad leaf step: 4 sequential Möller–Trumbore tests ------
         done = zeros(torch.bool)
-        for j in range(QUAD):
+        for j in () if ablate & ABLATE_NO_QUAD else range(QUAD):
             q = row[j * 13: j * 13 + 13]
             p0, e1, e2, nrm = q[0:3], q[3:6], q[6:9], q[9:12]
             gpos = q[12].to(i64)
@@ -660,10 +665,10 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
             keys.append(torch.where(hit, slot_key[c] if any_hit else t0,
                                     inf_row))
         words = [row[48 + c].to(i64) for c in range(WIDTH)]
-        _, wt = _sort8(keys, words)
+        wt = words if ablate & ABLATE_NO_SORT else _sort8(keys, words)[1]
         n_hits = torch.stack(hits).sum(0)
         descend = do_node & (n_hits > 0)
-        for j in range(WIDTH - 1, 0, -1):
+        for j in () if ablate & ABLATE_NO_PUSH else range(WIDTH - 1, 0, -1):
             push = do_node & (n_hits > j)
             stack = torch.where(push, torch.cat([wt[j][None], stack[:-1]]),
                                 stack)
@@ -690,6 +695,30 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
     return out_f, out_i
 
 
+def check_pair_inputs(name, table, tid, rays, stack_depth: int) -> None:
+    """Raise ValueError unless B1's inputs on a CUDA device are what its
+    kernel takes: a contiguous [T, 64, P] f32 table, [L] int32 tid and
+    [8, L] f32 rays on one device, and a stack within the compiled
+    capacity."""
+    if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
+        raise ValueError(f"{name}: stack depth {stack_depth} "
+                         f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
+    L = tid.shape[0]
+    if (table.dtype != torch.float32 or table.dim() != 3
+            or table.shape[1] != ROWS or not table.is_contiguous()
+            or table.device != rays.device):
+        raise ValueError(f"{name}: table must be a contiguous "
+                         f"[T, {ROWS}, P] float32 tensor on {rays.device}")
+    if (tid.dtype != torch.int32 or tid.dim() != 1 or not tid.is_contiguous()
+            or tid.device != rays.device):
+        raise ValueError(f"{name}: tid must be a contiguous [L] "
+                         f"int32 tensor on {rays.device}")
+    if (rays.dtype != torch.float32 or tuple(rays.shape) != (8, L)
+            or not rays.is_contiguous()):
+        raise ValueError(f"{name}: rays must be a contiguous [8, L] "
+                         "float32 tensor")
+
+
 def traverse_pairs(table, tid, rays, *, any_hit: bool, robust: bool,
                    stack_depth: int):
     """Wide treelet traversal of (ray, treelet) pairs: the CUDA kernel
@@ -700,23 +729,8 @@ def traverse_pairs(table, tid, rays, *, any_hit: bool, robust: bool,
                                   robust=robust, stack_depth=stack_depth)
     if rays.device.type != "cuda":
         raise ValueError(f"traverse_pairs: unsupported device {rays.device}")
-    if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
-        raise ValueError(f"traverse_pairs: stack depth {stack_depth} "
-                         f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
+    check_pair_inputs("traverse_pairs", table, tid, rays, stack_depth)
     L = tid.shape[0]
-    if (table.dtype != torch.float32 or table.dim() != 3
-            or table.shape[1] != ROWS or not table.is_contiguous()
-            or table.device != rays.device):
-        raise ValueError("traverse_pairs: table must be a contiguous "
-                         f"[T, {ROWS}, P] float32 tensor on {rays.device}")
-    if (tid.dtype != torch.int32 or tid.dim() != 1 or not tid.is_contiguous()
-            or tid.device != rays.device):
-        raise ValueError("traverse_pairs: tid must be a contiguous [L] "
-                         f"int32 tensor on {rays.device}")
-    if (rays.dtype != torch.float32 or tuple(rays.shape) != (8, L)
-            or not rays.is_contiguous()):
-        raise ValueError("traverse_pairs: rays must be a contiguous [8, L] "
-                         "float32 tensor")
     out_f = torch.empty((3, L), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, L), dtype=torch.int32, device=rays.device)
     kernels.WIDE_TREELET.launch(
@@ -785,13 +799,17 @@ class Portals(NamedTuple):
 def collect_and_sort(tl: WideTreelets, packed, *, robust: bool,
                      top_stack: int, max_portals: int,
                      collect=collect_portals) -> Portals:
-    """Phase A, then each ray's portals sorted ascending by entry t
-    (wide_treelet.py:1892) over the rays that recorded any (:1536).
+    """Phase A, then `sort_portals`."""
+    return sort_portals(*collect(tl.top_node_t, packed, tl.top_root,
+                                 robust=robust, stack_depth=top_stack,
+                                 max_portals=max_portals))
+
+
+def sort_portals(ptid, ptent, stats) -> Portals:
+    """Phase A's records compacted to the rays that recorded any portal
+    (:1536), each ray's portals sorted ascending by entry t (:1892).
     torch's stable sort orders equal entry t by record order, where
     the reference's sort is not declared stable; only ties differ."""
-    ptid, ptent, stats = collect(tl.top_node_t, packed, tl.top_root,
-                                 robust=robust, stack_depth=top_stack,
-                                 max_portals=max_portals)
     cnt = stats[0]
     sel = torch.nonzero(cnt > 0).squeeze(1)
     tent, order = torch.sort(ptent[:, sel], dim=0, stable=True)
@@ -881,6 +899,21 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     return main_id, main_t, bits, diag
 
 
+def ready_rays(portals: Portals, cur, tmax, bpos, *, any_hit: bool):
+    """The rays that take part in the next round: those whose portal at
+    the cursor is live (:1551-1561). Entries ascend and tmax only
+    shrinks, so a ray whose next portal starts past its tmax is done;
+    an any-hit ray is done at its first hit.
+    Returns (live [Rc] bool, rsel: indices of the ready rays)."""
+    mp = portals.tid.shape[0]
+    live = bpos < 0 if any_hit else torch.ones_like(cur, dtype=torch.bool)
+    curc = cur.clamp(max=mp - 1)[None, :]
+    p_tid = torch.where(cur < mp, portals.tid.gather(0, curc)[0], -1)
+    p_t = portals.tent.gather(0, curc)[0]
+    ready = live & (p_tid >= 0) & (p_t <= tmax)
+    return live, torch.nonzero(ready).squeeze(1)
+
+
 def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
                 k: int):
     """The (ray, treelet) pairs of one round: portals cur..cur+k-1 of
@@ -905,17 +938,63 @@ def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
     return validk, pk, pr, wtid[pk, pr].to(torch.int32), prays.contiguous()
 
 
+def merge_round(best, tmax, cur, rsel, validk, pk, pr, out_f, out_i, *,
+                k: int, any_hit: bool) -> None:
+    """Merge one round's pair results into the best hits of the ready
+    rays `rsel`, first-j strict-min for closest hit and first-j hit for
+    any-hit (:1702-1724), and write them back: `best` = (bt, bu, bv,
+    bpos), `tmax` (closest hit) and the portal cursors `cur` are updated
+    in place. validk, pk, pr: `round_pairs`' outputs; out_f, out_i:
+    kernel B1's on those pairs."""
+    bt, bu, bv, bpos = best
+    dev = bt.device
+    f32, i64 = torch.float32, torch.int64
+    Rr = rsel.numel()
+    res_t = torch.full((k, Rr), float("inf"), dtype=f32, device=dev)
+    res_u = torch.zeros((k, Rr), dtype=f32, device=dev)
+    res_v = torch.zeros((k, Rr), dtype=f32, device=dev)
+    res_pos = torch.full((k, Rr), -1, dtype=i64, device=dev)
+    res_t[pk, pr] = out_f[0]
+    res_u[pk, pr] = out_f[1]
+    res_v[pk, pr] = out_f[2]
+    res_pos[pk, pr] = out_i[0].to(i64)
+    n_bt, n_bu, n_bv, n_pos = bt[rsel], bu[rsel], bv[rsel], bpos[rsel]
+    for j in range(k):
+        if any_hit:
+            upd = validk[j] & (res_pos[j] >= 0) & (n_pos < 0)
+        else:
+            upd = validk[j] & (res_t[j] < n_bt)
+        n_bt = torch.where(upd, res_t[j], n_bt)
+        n_bu = torch.where(upd, res_u[j], n_bu)
+        n_bv = torch.where(upd, res_v[j], n_bv)
+        n_pos = torch.where(upd, res_pos[j], n_pos)
+    if not any_hit:
+        tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
+    bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
+    cur[rsel] += k
+
+
+def run_stage(name: str, fn, *args, **kwargs):
+    """Run one stage of the render, `fn(*args, **kwargs)`. A profiler
+    passes its own runner to `_render` to time or record each stage by
+    `name` (bvh_tpu_torch/tools/profile_r3.py)."""
+    return fn(*args, **kwargs)
+
+
 def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
             stack_depth, max_portals, max_rounds, k, collect, traverse,
-            collect_super, sup_stack, mps, max_new):
+            collect_super, sup_stack, mps, max_new, stage=run_stage):
     """One render at fixed capacities. Returns the per-ray best hit
     (t, u, v, pos), phase-A counts, the round count and the overflow
-    observations the caller checks."""
+    observations the caller checks. Each stage runs through `stage`:
+    phase_a, portal_sort, phase_a2 (two-level scenes), then per round
+    ready, round_pairs, b1 and merge_round."""
     R = packed.shape[1]
     dev = packed.device
     f32, i64 = torch.float32, torch.int64
-    portals = collect_and_sort(tl, packed, robust=robust, top_stack=top_stack,
-                               max_portals=max_portals, collect=collect)
+    portals = stage("portal_sort", sort_portals, *stage(
+        "phase_a", collect, tl.top_node_t, packed, tl.top_root,
+        robust=robust, stack_depth=top_stack, max_portals=max_portals))
     diag = dict(max_cnt=int(portals.cnt.max()) if R else 0,
                 top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
                 stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
@@ -931,10 +1010,10 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     Rc = sel.numel()
     rays_c = packed[:, sel]
     if tl.sup_table.shape[0] > 0:
-        tid, tent, bits, a2 = expand_supers(
-            tl, portals, rays_c, robust=robust, sup_stack=sup_stack, mps=mps,
-            max_new=max_new, max_portals=max_portals,
-            collect_super=collect_super)
+        tid, tent, bits, a2 = stage(
+            "phase_a2", expand_supers, tl, portals, rays_c, robust=robust,
+            sup_stack=sup_stack, mps=mps, max_new=max_new,
+            max_portals=max_portals, collect_super=collect_super)
         diag.update(a2, a2_bits=bits)
         if bits or a2["sup_ovf"]:
             return out_t, out_u, out_v, out_pos, portals.cnt, diag
@@ -946,58 +1025,48 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     bv = torch.zeros(Rc, dtype=f32, device=dev)
     bpos = torch.full((Rc,), -1, dtype=i64, device=dev)
     cur = torch.zeros(Rc, dtype=i64, device=dev)
-    lanes = torch.arange(Rc, device=dev)
     while True:
-        # ready <=> the portal at the cursor is live (entries ascend,
-        # tmax only shrinks), :1551-1561
-        live = bpos < 0 if any_hit else torch.ones_like(cur, dtype=torch.bool)
-        curc = cur.clamp(max=max_portals - 1)[None, :]
-        p_tid = torch.where(cur < max_portals,
-                            portals.tid.gather(0, curc)[0], -1)
-        p_t = portals.tent.gather(0, curc)[0]
-        ready = live & (p_tid >= 0) & (p_t <= tmax)
-        rsel = lanes[ready]
+        live, rsel = stage("ready", ready_rays, portals, cur, tmax, bpos,
+                           any_hit=any_hit)
         if rsel.numel() == 0:
             break
         if diag["rounds"] == max_rounds:
             diag["pending"] = True
             break
-        validk, pk, pr, ptid, prays = round_pairs(
-            portals, cur, tmax, live, rays_c, octant, rsel, k)
-        out_f, out_i = traverse(tl.table, ptid, prays, any_hit=any_hit,
-                                robust=robust, stack_depth=stack_depth)
+        validk, pk, pr, ptid, prays = stage(
+            "round_pairs", round_pairs, portals, cur, tmax, live, rays_c,
+            octant, rsel, k)
+        out_f, out_i = stage("b1", traverse, tl.table, ptid, prays,
+                             any_hit=any_hit, robust=robust,
+                             stack_depth=stack_depth)
         diag["rounds"] += 1
         diag["pairs"] += ptid.numel()
         if ptid.numel():
             diag["stack_hwm"] = max(diag["stack_hwm"], int(out_i[2].max()))
             diag["stack_ovf"] |= bool(out_i[3].any())
-        Rr = rsel.numel()
-        res_t = torch.full((k, Rr), float("inf"), dtype=f32, device=dev)
-        res_u = torch.zeros((k, Rr), dtype=f32, device=dev)
-        res_v = torch.zeros((k, Rr), dtype=f32, device=dev)
-        res_pos = torch.full((k, Rr), -1, dtype=i64, device=dev)
-        res_t[pk, pr] = out_f[0]
-        res_u[pk, pr] = out_f[1]
-        res_v[pk, pr] = out_f[2]
-        res_pos[pk, pr] = out_i[0].to(i64)
-        # first-j strict-min (closest) / first-j hit (any), :1702-1724
-        n_bt, n_bu, n_bv, n_pos = bt[rsel], bu[rsel], bv[rsel], bpos[rsel]
-        for j in range(k):
-            if any_hit:
-                upd = validk[j] & (res_pos[j] >= 0) & (n_pos < 0)
-            else:
-                upd = validk[j] & (res_t[j] < n_bt)
-            n_bt = torch.where(upd, res_t[j], n_bt)
-            n_bu = torch.where(upd, res_u[j], n_bu)
-            n_bv = torch.where(upd, res_v[j], n_bv)
-            n_pos = torch.where(upd, res_pos[j], n_pos)
-        if not any_hit:
-            tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
-        bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
-        cur[rsel] += k
+        stage("merge_round", merge_round, (bt, bu, bv, bpos), tmax, cur,
+              rsel, validk, pk, pr, out_f, out_i, k=k, any_hit=any_hit)
 
     out_t[sel], out_u[sel], out_v[sel], out_pos[sel] = bt, bu, bv, bpos
     return out_t, out_u, out_v, out_pos, portals.cnt, diag
+
+
+def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
+                   robust: bool, collect=collect_portals,
+                   traverse=traverse_pairs,
+                   collect_super=collect_super_pairs, stage=run_stage):
+    """`_render` of [8, R] packed rays at the capacities `caps` (the dict
+    that `wide_treelet_intersect_tris(..., return_diag=True)` reports
+    under "caps"), with each stage run through `stage`. Returns what
+    `_render` returns; an overflow is reported in the diag, not
+    raised."""
+    return _render(
+        tl, packed, any_hit=any_hit, robust=robust,
+        top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
+        max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
+        k=portals_per_round(tl), collect=collect, traverse=traverse,
+        collect_super=collect_super, sup_stack=caps["sup_stack"],
+        mps=caps["mps"], max_new=caps["max_new"], stage=stage)
 
 
 def wide_treelet_intersect_tris(
@@ -1049,9 +1118,7 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     kernels' dispatchers, or their plain versions (`collect_portals_ref`,
     `traverse_pairs_ref`, `collect_super_pairs_ref`) to run the render
     without the kernels on any device."""
-    R = rays.tmin.shape[0]
-    k = portals_per_round(tl)
-    auto = wide_treelet_caps(tl, k)
+    auto = wide_treelet_caps(tl, portals_per_round(tl))
     caps = dict(
         top_stack=top_stack if top_stack is not None else tl.top_depth + 1,
         stack_depth=(stack_depth if stack_depth is not None
@@ -1066,13 +1133,9 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     )
     packed = pack_rays(rays)
     for attempt in range(8):
-        bt, bu, bv, pos, cnt, diag = _render(
-            tl, packed, any_hit=any_hit, robust=robust,
-            top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
-            max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
-            k=k, collect=collect, traverse=traverse,
-            collect_super=collect_super, sup_stack=caps["sup_stack"],
-            mps=caps["mps"], max_new=caps["max_new"])
+        bt, bu, bv, pos, cnt, diag = render_at_caps(
+            tl, packed, caps, any_hit=any_hit, robust=robust,
+            collect=collect, traverse=traverse, collect_super=collect_super)
         bumps = {}
         if diag["max_cnt"] > caps["max_portals"]:
             bumps["max_portals"] = _up_pow2(diag["max_cnt"])

@@ -87,7 +87,26 @@ exits non-zero):
    B5 render of all primary rays within 4 rays of the high tree's
    (phase 12), each difference a fast-slab cull; `widen` of the high
    tree (host) and every 16th primary ray through `intersect_tris_wide`
-   on the card against B5 on the same tree, under the same rule.
+   on the card against B5 on the same tree, under the same rule;
+17. the profiling tools' kernels (`bvh_tpu_torch/tools/`): T6 column
+   fetch in bf16 and int8 at tools/probe_int8_fetch.py's shapes, bit for
+   bit against its plain version, then its and the library's times (µs
+   per fetch); T5 wide-step probe bit for bit against its plain version
+   at 512 iterations on four of tools/probe_tpu.py's configs (and one
+   on inputs where about half the slab tests hit), then the cost per
+   iteration of all 12 configs and one that fills the card, and the
+   glue's sorts and gathers at 1M rows; T1: on the chain table B1, its
+   plain version and each ablation variant equal on every lane with
+   active steps = depth, then each variant's cost per step.
+
+The render profilers run inside phases 10 and 13: after phase 10, T2
+(`profile_r3`: the primary render stage by stage, whose stages give the
+render's hits bit for bit, a torch.profiler trace of one render, the
+pair-sort candidates) and T3 (`profile_occupancy`: round 1's per-pair
+steps, on the pairs phase 6 checked, and the SIMT efficiency of pair
+orderings); in phase 13, T4 (`profile_sm`) on the San-Miguel-class
+scene that phase built, with kernel B2 there held against its plain
+version.
 
 The second-to-last lines are a JSON object naming each kernel with its
 launches, error, times and bound, and the card's name and power limit;
@@ -146,6 +165,8 @@ SCALE_M, SCALE_RAYS = 262_144, 1 << 20
 F64_M, F64_RAYS = 1024, 16_384
 F64_BIG, F64_BIG_RAYS = 262_144, 65_536
 F64_CHECK = 256  # every 256th ray against the brute-force minimum
+# Phase 17: tools/ablate_kernel.py's lanes and table width
+T1_B, T1_P = 1024, 384
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 DEV = "cuda"
@@ -536,12 +557,48 @@ def two_level_phase() -> dict:
         + f"; tree == the CLI's: {same_build}")
     if not same_build:
         raise AssertionError("the staged build differs from the CLI's")
+
+    # T4, the San-Miguel-class profiler, on this scene; B2 at its width
+    # against its plain version
+    from bvh_tpu_torch.tools import profile_sm
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    t4 = profile_sm.run(tl, res.rays, DEV)
+    t4["launches"] = launch_counts()
+    a_args, a_kw, a_out = t4["phase_a_args"]
+    p_out = col.collect_portals_ref(*a_args, **a_kw)
+    fin = torch.isfinite(p_out[1])
+    t4["err"] = float((a_out[1][fin] - p_out[1][fin]).abs().max()) \
+        if fin.any() else 0.0
+    log(f"# T4: B2 at the San-Miguel-class top width equal to its plain "
+        f"version: {same(a_out, p_out)}; T4 in "
+        f"{time.perf_counter() - t0:.1f} s, launches {t4['launches']}")
+    if not same(a_out, p_out):
+        raise AssertionError("B2 at the San-Miguel-class width differs from "
+                             "its plain version")
+    t4["plain_ms"], plast = time_ms(lambda: col.collect_portals_ref(
+        *a_args, **a_kw), 1)
+    if not same(plast, a_out):
+        raise AssertionError("timed B2 plain output diverged")
+    pcnt = int(a_out[2][0].sum())
+    t4["bound"] = bound(nbytes(a_args[1], *a_out)
+                        + min(nbytes(a_args[0]), 56 * pcnt // 2),
+                        OPS_PORTAL * pcnt)
+    out["t4"] = t4
     return out
 
 
 def sync() -> None:
     if DEV == "cuda":
         torch.cuda.synchronize()
+
+
+def launch_counts() -> dict:
+    """The kernels launched since the counts were last reset."""
+    from bvh_tpu_torch import kernels
+
+    return {k.name: k.launches for k in kernels.KERNELS if k.launches}
 
 
 def events_ms(fn):
@@ -928,6 +985,83 @@ def lbvh_wide_phase(tree, flat, rays, high_hit, mn, mx, cc) -> None:
     log(f"# phase 16 in {time.perf_counter() - t0:.1f} s")
 
 
+def tool_kernels_phase() -> dict:
+    """Phase 17: the profiling tools' own kernels T6, T5 and T1, each
+    against its plain version, then their measurements."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.tools import ablate_kernel as t1
+    from bvh_tpu_torch.tools import probe_int8_fetch as t6
+    from bvh_tpu_torch.tools import probe_tpu as t5
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = {}
+    # T6: both dtypes at the tool's shapes
+    r6 = t6.run(DEV)
+    tab_bf, tab_i8, idx = t6.make_inputs(device=DEV)
+    nb = ops = 0
+    for tab, r in ((tab_bf, r6["bf16"]), (tab_i8, r6["int8"])):
+        nb += nbytes(tab, idx, r["out"])
+        ops += r["out"].numel() * t6.ITERS
+    out["t6"] = dict(
+        ms=r6["bf16"]["ms"] + r6["int8"]["ms"],
+        plain_ms=r6["bf16"]["plain_ms"] + r6["int8"]["plain_ms"],
+        library_ms=r6["bf16"]["window_ms"] + r6["int8"]["window_ms"],
+        bound=bound(nb, ops), us_per_fetch={
+            f"{k}_{d}": r6[d][f"{k}_ms"] * 1e3 / (
+                t6.ITERS if k == "window" else 1)
+            for d in ("bf16", "int8")
+            for k in ("index_select", "one_hot", "window")},
+        kernel_us_per_fetch={d: r6[d]["ms"] * 1e3 / t6.ITERS
+                             for d in ("bf16", "int8")})
+    # T5: bit for bit at 512 iterations on four of the tool's configs
+    rng = np.random.default_rng(0)
+    for B, C, sort8, chains in ((2048, 128, False, 1), (2048, 128, True, 1),
+                                (2048, 128, False, 2), (8192, 128, True, 2)):
+        table, prays = (x.to(DEV) for x in t5.tool_inputs(B, C, rng))
+        r = t5.check_config(table, prays, sort8, chains, iters=t5.LO)
+        log(f"# T5 B={B} C={C} sort8={int(sort8)} chains={chains}, "
+            f"{t5.LO} iterations, the tool's inputs: kernel equal to its "
+            f"plain version on every lane; slab hit share "
+            f"{r['hit_share']:.4f}")
+    table, prays = (x.to(DEV) for x in t5.hitting_inputs(2048, 128))
+    r = t5.check_config(table, prays, True, 1, iters=t5.LO)
+    log(f"# T5 B=2048 C=128 sort8=1 chains=1, {t5.LO} iterations, inputs "
+        f"that hit: kernel equal to its plain version; slab hit share "
+        f"{r['hit_share']:.4f}")
+    kw = dict(sort8=True, chains=1, stack_depth=t5.STACK_DEPTH, iters=t5.LO)
+    ms5, last = time_ms(lambda: t5.wide_step_probe(table, prays, **kw), 10)
+    plain5, plast = time_ms(lambda: t5.wide_step_probe_ref(
+        table, prays, **kw), 1)
+    if not (same(last, r["out"]) and same(plast, r["out"])):
+        raise AssertionError("timed T5 output diverged")
+    B5_, C5_ = prays.shape[1], table.shape[1]
+    out["t5"] = dict(ms=ms5, plain_ms=plain5, bound=bound(
+        nbytes(table, prays, r["out"]), OPS_WIDE_STEP * B5_ * t5.LO),
+        per_iter=t5.probe_kernels(DEV), library=t5.probe_library(DEV))
+    log(f"# T5 at B={B5_} C={C5_} sort8=1 chains=1, {t5.LO} iterations, "
+        f"inputs that hit: kernel {ms5:.4f} ms, plain {plain5:.3f} ms, "
+        f"bound {out['t5']['bound'][0]:.5f} ms ({out['t5']['bound'][1]})")
+    # T1: the chain check, then each variant's cost per step
+    r1 = t1.run(T1_B, T1_P, DEV)
+    full = r1["checks"][T1_P - 16]["out"]
+    asteps = int(full[1][1].sum())
+    out["t1"] = dict(
+        ms=r1["no quad MT"]["ms_hi"], plain_ms=r1["plain_ms"],
+        bound=bound(nbytes(r1["tid"], r1["rays"], *full)
+                    + min(nbytes(r1["table"]), 256 * asteps),
+                    OPS_WIDE_STEP * asteps),
+        us_per_step={k: v["us"] for k, v in r1.items()
+                     if isinstance(v, dict) and "us" in v})
+    out["launches"] = launch_counts()
+    log(f"# phase 17 in {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{out['launches']}")
+    for k in ("column_fetch", "wide_step_probe", "traverse_pairs_ablate"):
+        if not out["launches"].get(k):
+            raise AssertionError(f"phase 17 never launched {k}")
+    return out
+
+
 def run() -> dict:
     from bvh_tpu_torch import kernels
     from bvh_tpu_torch.api.native import NativeBvh3f
@@ -1294,6 +1428,22 @@ def run() -> dict:
     for k, (ms, by) in bounds.items():
         log(f"# bound of {k} at the timed shapes: {ms:.4f} ms ({by})")
 
+    # ---- 10 (T2, T3). the render profilers on the primary render ------
+    from bvh_tpu_torch.tools import profile_occupancy, profile_r3
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    t2 = profile_r3.run(tl, rays, dev)
+    t2["launches"] = launch_counts()
+    kernels.reset_launch_counts()
+    t3 = profile_occupancy.run(tl, rays, dev)
+    t3["launches"] = launch_counts()
+    b1_args = t3["round_one"]["b1"][0]
+    if not (same(b1_args[1], ptid) and same(b1_args[2], prays)):
+        raise AssertionError("T3's round-1 pairs are not phase 6's")
+    log(f"# T2 and T3 in {time.perf_counter() - t0:.1f} s; launches: T2 "
+        f"{t2['launches']}, T3 {t3['launches']}")
+
     # ---- 11-13. the CLI: Cornell through B5, B5 on the 262K tree, the
     # ---- San-Miguel-class two-level render through B4 ----------------
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1308,6 +1458,9 @@ def run() -> dict:
     b6 = dims_phase()
     f64_phase()
     lbvh_wide_phase(tree, flat, rays, high_hit, mn, mx, cc)
+
+    # ---- 17. the profiling tools' kernels T6, T5, T1 --------------------
+    t17 = tool_kernels_phase()
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n):
@@ -1318,6 +1471,18 @@ def run() -> dict:
                 "plain_ms": timings[f"{key}_plain_ms"],
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                 "library_ms": None}
+
+    def tool_entry(name, source, replaces, launches, max_err, m,
+                   library_ms=None, **extra):
+        """A tool's row: its kernel's launches within the tool (by
+        kernel), the error against the plain version, and the times and
+        bound in `m` (ms, plain_ms, bound)."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "max_abs_err": max_err, "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+                "bound_by": m["bound"][1], "library_ms": library_ms,
+                "launches_by_kernel": launches, **extra}
 
     err["b5"], err["b4"], err["b6"] = b5["err"], b4["err"], b6["err"]
     for key, d_ in (("b5", b5), ("b4", b4), ("b6", b6)):
@@ -1343,6 +1508,47 @@ def run() -> dict:
         entry(kernels.SPHERE_TRAVERSE,
               "bvh_tpu_torch/csrc/binary_traverse.cu",
               "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"]),
+        tool_entry("T1 traverse_pairs_ablate (B1's variants)",
+                   "bvh_tpu_torch/csrc/wide_treelet.cu",
+                   "tools/ablate_kernel.py:97",
+                   {kernels.WIDE_TREELET_ABLATE.name:
+                    t17["launches"][kernels.WIDE_TREELET_ABLATE.name]},
+                   0.0, t17["t1"], us_per_step=t17["t1"]["us_per_step"]),
+        tool_entry("T2 profile_r3 (collect_portals timed in the render)",
+                   "bvh_tpu_torch/csrc/collect.cu",
+                   "tools/profile_r3.py:119", t2["launches"], err["b2"],
+                   dict(ms=t2["stages"]["phase_a"],
+                        plain_ms=timings["b2_plain_ms"], bound=bounds["b2"]),
+                   stage_ms=t2["stages"], stage_sum_ms=t2["stage_sum"],
+                   render_ms=t2["whole_ms"], trace=t2["trace"]),
+        tool_entry("T3 profile_occupancy (traverse_pairs on round 1)",
+                   "bvh_tpu_torch/csrc/wide_treelet.cu",
+                   "tools/profile_occupancy.py:83", t3["launches"],
+                   err["b1"], dict(ms=t3["round_one"]["b1_ms"],
+                                   plain_ms=timings["b1_plain_ms"],
+                                   bound=bounds["b1"]),
+                   simt_efficiency=t3["simt"]),
+        tool_entry("T4 profile_sm (collect_portals at San-Miguel class)",
+                   "bvh_tpu_torch/csrc/collect.cu",
+                   "tools/profile_sm.py:169", b4["t4"]["launches"],
+                   b4["t4"]["err"], dict(ms=b4["t4"]["phase_a_ms"],
+                                         plain_ms=b4["t4"]["plain_ms"],
+                                         bound=b4["t4"]["bound"]),
+                   render_ms=b4["t4"]["render_ms"],
+                   intercept_ms=b4["t4"]["intercept_ms"],
+                   slope_ms=b4["t4"]["slope_ms"]),
+        tool_entry("T5 wide_step_probe", "bvh_tpu_torch/csrc/probes.cu",
+                   "tools/probe_tpu.py:147",
+                   {kernels.WIDE_STEP_PROBE.name:
+                    t17["launches"][kernels.WIDE_STEP_PROBE.name]},
+                   0.0, t17["t5"], us_per_iter=t17["t5"]["per_iter"]),
+        tool_entry("T6 column_fetch", "bvh_tpu_torch/csrc/probes.cu",
+                   "tools/probe_int8_fetch.py:65",
+                   {kernels.COLUMN_FETCH.name:
+                    t17["launches"][kernels.COLUMN_FETCH.name]},
+                   0.0, t17["t6"], library_ms=t17["t6"]["library_ms"],
+                   us_per_fetch=t17["t6"]["us_per_fetch"],
+                   kernel_us_per_fetch=t17["t6"]["kernel_us_per_fetch"]),
     ]}
 
 

@@ -2,8 +2,9 @@
 CUDA device: the render kernels (B1, B2), the binary traversal (B5) and
 the sphere traversal at dims 2, 3 and 4 (B6) in every mode
 (closest/any-hit x fast/robust), phase A2 (B4) and the two-level
-render, and the group build (B3) on groups that reach each of its
-branches. They skip where there is no device. The repository's conftest imports jax, which
+render, the group build (B3) on groups that reach each of its
+branches, and the profiling tools' kernels (T6 column fetch, T5 wide
+step probe, T1 B1's ablation variants). They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -397,3 +398,79 @@ def test_sphere_kernel_stack_one_short(spheres):
     assert gi[3].any()
     with pytest.raises(ValueError, match="overflow"):
         sk.pallas_intersect_spheres(bvh, c, r, rays, stack_depth=need - 1)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_column_fetch_kernel_equals_plain(dtype):
+    """T6 at the tool's shapes (ROWS 156/216, P 1,280, B 512), 200 fetches,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools import probe_int8_fetch as tf
+
+    tab_bf, tab_i8, idx = tf.make_inputs(device="cuda")
+    table = tab_bf if dtype == "bf16" else tab_i8
+    before = kernels.COLUMN_FETCH.launches
+    got = tf.column_fetch(table, idx, tf.ITERS)
+    assert kernels.COLUMN_FETCH.launches == before + 1
+    want = tf.column_fetch_ref(table, idx, tf.ITERS)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("B, C, sort8, chains", [(2048, 128, True, 1),
+                                                 (1024, 512, False, 4)])
+@pytest.mark.parametrize("inputs", ["tool", "hitting"])
+def test_wide_step_probe_kernel_equals_plain(B, C, sort8, chains, inputs):
+    """T5 at 64 iterations, bit for bit, on the tool's inputs and on
+    inputs where about half the slab tests hit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools import probe_tpu as tp
+
+    table, rays = (tp.tool_inputs(B, C, np.random.default_rng(0))
+                   if inputs == "tool" else tp.hitting_inputs(B, C))
+    before = kernels.WIDE_STEP_PROBE.launches
+    res = tp.check_config(table.cuda(), rays.cuda(), sort8, chains, iters=64)
+    assert kernels.WIDE_STEP_PROBE.launches == before + 1
+    assert not res["out"][chains:].any()
+    if inputs == "hitting":
+        assert 0.2 <= res["hit_share"] <= 0.8
+
+
+@pytest.mark.parametrize("depth", [4, 40])
+def test_ablation_variants_on_chain_table(depth):
+    """T1: on the chain table every variant equals the full kernel, and
+    the full kernel its plain version, with `depth` steps on every lane;
+    on the render's pairs each variant equals the plain version with the
+    same code left out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools import ablate_kernel as ak
+
+    table = torch.from_numpy(ak.make_chain_table(depth, 128)).cuda()
+    tid, rays = ak.chain_pairs(1024, "cuda")
+    before = kernels.WIDE_TREELET_ABLATE.launches
+    ak.check_chain(table, tid, rays, depth)
+    assert kernels.WIDE_TREELET_ABLATE.launches == before + len(ak.VARIANTS)
+
+
+@pytest.mark.parametrize("variant", [1, 2, 4])
+def test_ablation_variant_equals_ablated_plain(scene, variant):
+    """Off the chain table a variant computes something else than B1; the
+    plain version with the same code left out follows it bit for bit."""
+    from bvh_tpu_torch.tools import ablate_kernel as ak
+
+    tl, rays, _ = scene
+    portals = wt.collect_and_sort(tl, wt.pack_rays(rays), robust=False,
+                                  top_stack=tl.top_depth + 1, max_portals=64)
+    kk, rr = torch.nonzero(portals.tid >= 0, as_tuple=True)
+    tid = portals.tid[kk, rr].to(torch.int32)
+    prays = wt.pack_rays(rays)[:, portals.sel[rr]].contiguous()
+    sd = 7 * tl.wide_depth + 8
+    got = ak.traverse_pairs_ablate(tl.table, tid, prays, variant=variant,
+                                   stack_depth=sd)
+    want = wt.traverse_pairs_ref(tl.table, tid, prays, any_hit=False,
+                                 robust=False, stack_depth=sd,
+                                 ablate=variant)
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1])
