@@ -30,7 +30,11 @@ Layouts (as `bvh_tpu`):
 
 `group_forest_build` runs the CUDA kernel (csrc/group_build.cu) for a
 tensor on a CUDA device and `group_forest_build_ref`, the plain
-version, for a tensor on the CPU.
+version, for a tensor on the CPU. Both are level-synchronous: the
+kernel works a group's open nodes of one BFS level together (a warp a
+node of at most 128 lanes, the whole CTA a larger one) and gives the
+level's splitting nodes their children's slots by a scan in slot order,
+as the plain version does over all groups at once.
 """
 
 from __future__ import annotations
@@ -325,7 +329,7 @@ def group_forest_build(pf, sizes, *, dim: int, P: int, NCAP=None,
     if P > max_p:
         raise ValueError(
             f"group_forest_build: P={P} does not fit a block's shared memory "
-            f"(80 bytes a lane); this card allows P <= {max_p}")
+            f"(44 bytes a lane); this card allows P <= {max_p}")
     nbf = torch.empty((8, G * NCAP), dtype=_F32, device=pf.device)
     nbi = torch.empty((8, G * NCAP), dtype=torch.int32, device=pf.device)
     src = torch.empty(G * P, dtype=torch.int32, device=pf.device)

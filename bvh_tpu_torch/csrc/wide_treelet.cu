@@ -3,8 +3,10 @@
 // Replaces the Pallas kernel `_traverse_core`
 // (bvh_tpu/traverse/wide_treelet.py:741), launched per grid block by
 // `_wide_kernel_dma` (:1042) from `_phase_b` (:1096). For each
-// (ray, treelet) pair it walks the treelet's 8-wide BVH, stored as one
-// [64, P] f32 table per treelet inside table[T, 64, P]:
+// (ray, treelet) pair it walks the treelet's 8-wide BVH. It reads the
+// column-contiguous copy of the treelet tables, cols[T, P, 64] f32
+// (`WideTreelets.table_cols`, the transpose of the reference's
+// table[T, 64, P]), so that one column is 256 contiguous bytes:
 //   node column: rows 0-47 the 8 children's bounds (lo/hi per axis),
 //                rows 48-55 the children's words as f32
 //                (inner child: col << 4; quad leaf: first col << 4 | n);
@@ -17,16 +19,32 @@
 // (:812-992), so per-pair active steps and stack high-water marks
 // match it exactly.
 //
-// What bounds it on the card: dependent, uncoalesced loads. A step
-// reads up to 56 floats of one table column, each P floats apart, so
-// every value is its own 32-byte sector; neighbouring threads read
-// neighbouring columns only when their pairs visit the same node. The
-// design gives each pair one thread (no lockstep across a block, as
-// the TPU's vector lanes had), sorts pairs by (treelet, octant) in the
-// render loop so a warp's threads tend to share a treelet and a traversal
-// order and hit the same lines in L1/L2, and keeps the stack in a
-// per-thread local array. A transposed table layout, so that a column
-// is contiguous, is left to a later change.
+// What bounds it on the card: dependent loads, one step's column after
+// the last, and the instructions of a step, with a warp's lanes at
+// different steps. The design:
+// - Loads. In the [T, 64, P] layout every float of a step was its own
+//   32-byte sector, P floats from the next; in the column layout an
+//   inner step's 56 floats are 14 aligned 16-byte loads and a quad
+//   step's 52 floats 13, all issued through the read-only path before
+//   any is used, so a step waits for about one memory latency.
+// - Registers. The sorted keys and words stay in registers: the
+//   far-to-near pushes are unrolled with a predicate a slot (one store
+//   each to its final place when they all fit), so no array but the
+//   stack (a per-thread local array) is indexed at run time;
+//   __launch_bounds__ holds 5 CTAs of 128 an SM without spills.
+// - Instructions. The slab min/max are one max.NaN/min.NaN each; the
+//   reciprocal is __frcp_rn; any-hit, whose network sorts slot keys,
+//   takes its hit slots in slot order without the network; the step
+//   that enters a quad leaf runs in the same pass as the leaf's first.
+// - Lanes at different steps. A pair's steps vary (p99 53, mean 13 at
+//   262K round 1), so a warp that waited for its slowest pair ran half
+//   idle. Each warp is persistent: every kSteps steps its lanes vote,
+//   and once kRefill lanes are idle they take the next pairs of the
+//   (treelet, octant)-sorted list from a global counter, until it runs
+//   out. The grid is what the card holds at once.
+// The pair list is sorted by (treelet, octant) in the render loop, so a
+// warp's lanes tend to share a treelet and a traversal order and hit the
+// same lines in L1/L2.
 //
 // Ablation variants (tools/ablate_kernel.py:147-174, ported as
 // bvh_tpu_torch/tools/ablate_kernel.py): `kAblate` is a bitmask of code
@@ -34,9 +52,9 @@
 // skips the 4 Möller–Trumbore tests of a quad step, kNoSort the
 // `_sort8` network (children stay in slot order), kNoPush the pushes.
 // The render's four instantiations have kAblate = 0, so every `if
-// constexpr` below keeps its code and they compile as before; the
-// variants are right only where the skipped code has no effect (the
-// tool's chain table) and are launched by `bvh_wide_treelet_ablate`.
+// constexpr` below keeps its code; the variants are right only where
+// the skipped code has no effect (the tool's chain table) and are
+// launched by `bvh_wide_treelet_ablate`.
 //
 // Exactness: slab max/min propagate NaN as the reference's
 // jnp.maximum/minimum do (:920-921, ROADMAP C6; fmaxf/fminf would
@@ -55,7 +73,16 @@ namespace {
 
 constexpr int kStackMax = BVH_WIDE_STACK_MAX;  // set by kernels.py
 constexpr int kRows = 64;
+constexpr int kVec = kRows / 4;  // float4 loads a column
 constexpr int kNoQuad = 1, kNoSort = 2, kNoPush = 4;
+constexpr int kBlock = 128;
+// CTAs an SM that the registers must allow (95 registers a thread)
+constexpr int kMinBlocks = 5;
+// a warp takes new pairs once this many of its lanes are idle
+constexpr int kRefill = 16;
+// steps a lane runs between two looks at its warp's idle lanes
+constexpr int kSteps = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0,
                                       float b1, float b2) {
@@ -68,205 +95,323 @@ __device__ __forceinline__ float cross_term(float a, float b, float c,
     return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
 
-template <bool kAnyHit, bool kRobust, int kAblate>
-__global__ void wide_treelet_kernel(const float* __restrict__ table, int P,
-                                    const int* __restrict__ tid,
-                                    const float* __restrict__ rays, int L,
-                                    int stack_depth, float* __restrict__ out_f,
-                                    int* __restrict__ out_i) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= L) return;
-    const float inf = __int_as_float(0x7f800000);
-    float o[3], d[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        o[a] = rays[a * L + i];
-        d[a] = rays[(3 + a) * L + i];
-    }
-    const float tmin = rays[6 * L + i];
-    float tmax = rays[7 * L + i];
-    const bvh::RayInv ray = bvh::make_ray_inv(o, d, kRobust);
-    const int t = tid[i];
-    const float* tab = table + static_cast<size_t>(t < 0 ? 0 : t) * kRows * P;
+// jnp.maximum / jnp.minimum in one instruction each (sm_80's max.NaN,
+// min.NaN: NaN in either operand yields NaN), where bvh::nan_max and
+// nan_min take four. They may differ from those in the sign of a zero
+// result only, and a zero's sign never reaches an output: entry
+// distances are compared, never stored.
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
 
-    int stack[kStackMax];
-    int sp = 0, top = 0, leaf_cur = 0, leaf_rem = 0;
-    int asteps = 0, hwm = 0, ovf = 0, best_pos = -1;
-    float best_t = inf, best_u = 0.0f, best_v = 0.0f;
-    bool active = t >= 0 && tmin <= tmax;
-
-    while (active) {
-        ++asteps;
-        bool done_by_hit = false, leaf_exhausted = false;
-        bool do_node = false, descend = false;
-        int new_top = 0;
-        if (leaf_rem > 0) {
-            // ---- quad leaf step: 4 sequential Möller–Trumbore tests
-            if constexpr ((kAblate & kNoQuad) == 0) {
-                const float* c = tab + leaf_cur;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    float q[13];
-#pragma unroll
-                    for (int r = 0; r < 13; ++r)
-                        q[r] = __ldg(c + (j * 13 + r) * P);
-                    const int gpos = static_cast<int>(q[12]);
-                    const float cv0 = __fsub_rn(q[0], o[0]);
-                    const float cv1 = __fsub_rn(q[1], o[1]);
-                    const float cv2 = __fsub_rn(q[2], o[2]);
-                    const float r0 = cross_term(d[1], cv2, d[2], cv1);
-                    const float r1 = cross_term(d[2], cv0, d[0], cv2);
-                    const float r2 = cross_term(d[0], cv1, d[1], cv0);
-                    const float inv_det = __fdiv_rn(
-                        1.0f, dot3(q[9], q[10], q[11], d[0], d[1], d[2]));
-                    const float uu =
-                        __fmul_rn(dot3(r0, r1, r2, q[6], q[7], q[8]), inv_det);
-                    const float vv =
-                        __fmul_rn(dot3(r0, r1, r2, q[3], q[4], q[5]), inv_det);
-                    const float ww = __fsub_rn(__fsub_rn(1.0f, uu), vv);
-                    const float tt = __fmul_rn(
-                        dot3(q[9], q[10], q[11], cv0, cv1, cv2), inv_det);
-                    const bool hit = uu >= -bvh::kEps && vv >= -bvh::kEps &&
-                                     ww >= -bvh::kEps && tt >= tmin &&
-                                     tt <= tmax && gpos >= 0 && !done_by_hit;
-                    if (hit) {
-                        best_t = tt;
-                        if (kAnyHit)
-                            done_by_hit = true;
-                        else
-                            tmax = tt;
-                        best_u = uu;
-                        best_v = vv;
-                        best_pos = gpos;
-                    }
-                }
-            }
-            ++leaf_cur;
-            --leaf_rem;
-            leaf_exhausted = leaf_rem == 0 && !done_by_hit;
-        } else if ((top & 15) != 0) {
-            // ---- enter a quad leaf: its columns are drained next steps
-            leaf_cur = top >> 4;
-            leaf_rem = top & 15;
-        } else {
-            // ---- wide inner step: 8 slab tests, sorted multi-push
-            do_node = true;
-            const float* c = tab + (top >> 4);
-            float key[8];
-            int word[8];
-            int n_hits = 0;
-#pragma unroll
-            for (int ch = 0; ch < 8; ++ch) {
-                float t0 = tmin, t1 = tmax;
-#pragma unroll
-                for (int a = 0; a < 3; ++a) {
-                    float tn, tf;
-                    bvh::slab_axis(ray, a, __ldg(c + (ch * 6 + 2 * a) * P),
-                                   __ldg(c + (ch * 6 + 2 * a + 1) * P),
-                                   kRobust, tn, tf);
-                    t0 = bvh::nan_max(tn, t0);
-                    t1 = bvh::nan_min(tf, t1);
-                }
-                const bool hit = t0 <= t1;
-                n_hits += hit;
-                key[ch] = hit ? (kAnyHit ? static_cast<float>(ch) : t0) : inf;
-                word[ch] = static_cast<int>(__ldg(c + (48 + ch) * P));
-            }
-            if constexpr ((kAblate & kNoSort) == 0) bvh::sort8(key, word);
-            descend = n_hits > 0;
-            new_top = word[0];
-            // push far to near, so the nearest remaining pops first
-            if constexpr ((kAblate & kNoPush) == 0) {
-                for (int j = n_hits - 1; j >= 1; --j) {
-                    if (sp < stack_depth) {
-                        stack[sp++] = word[j];
-                    } else {
-                        for (int k = 0; k + 1 < stack_depth; ++k)
-                            stack[k] = stack[k + 1];
-                        stack[stack_depth - 1] = word[j];
-                        ovf = 1;
-                    }
-                }
-            }
-        }
-        const bool need_pop = (do_node && !descend) || leaf_exhausted;
-        if (descend) {
-            top = new_top;
-        } else if (need_pop) {
-            if (sp > 0)
-                top = stack[--sp];
-            else
-                active = false;
-        }
-        if (done_by_hit) active = false;
-        hwm = max(hwm, sp);
+// Row r of a column held as float4s; r is a constant once unrolled.
+template <int N>
+__device__ __forceinline__ float row(const float4 (&v)[N], int r) {
+    const float4 x = v[r >> 2];
+    switch (r & 3) {
+        case 0: return x.x;
+        case 1: return x.y;
+        case 2: return x.z;
+        default: return x.w;
     }
-    out_f[i] = best_t;
-    out_f[L + i] = best_u;
-    out_f[2 * L + i] = best_v;
-    out_i[i] = best_pos;
+}
+
+// Push a word onto the stack; a full stack drops its bottom entry and
+// sets the sticky overflow flag.
+__device__ __forceinline__ void push(int* stack, int& sp, int& ovf,
+                                     int stack_depth, int w) {
+    if (sp < stack_depth) {
+        stack[sp++] = w;
+    } else {
+        for (int k = 0; k + 1 < stack_depth; ++k) stack[k] = stack[k + 1];
+        stack[stack_depth - 1] = w;
+        ovf = 1;
+    }
+}
+
+// A pair's t and counts, written when it ends.
+__device__ __forceinline__ void finish(int i, int L, float* out_f, int* out_i,
+                                       float t, int asteps, int hwm, int ovf) {
+    out_f[i] = t;
     out_i[L + i] = asteps;
     out_i[2 * L + i] = hwm;
     out_i[3 * L + i] = ovf;
 }
 
+template <bool kAnyHit, bool kRobust, int kAblate>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+wide_treelet_kernel(const float* __restrict__ cols, int P,
+                    const int* __restrict__ tid, const float* __restrict__ rays,
+                    int L, int stack_depth, float* __restrict__ out_f,
+                    int* __restrict__ out_i, int* __restrict__ next) {
+    const int lane = threadIdx.x & 31;
+    const float inf = __int_as_float(0x7f800000);
+    const float4* const tables = reinterpret_cast<const float4*>(cols);
+    int stack[kStackMax];
+    // The lane's pair i and its state, `active` while it has steps to
+    // run. `leaf` is the quad leaf being drained, as its word: next
+    // column << 4 | columns left. A hit's u, v and prim position go
+    // straight to the outputs; t and the counts when the pair ends.
+    int i = 0, sp = 0, top = 0, leaf = 0, asteps = 0, hwm = 0, ovf = 0;
+    float o[3], d[3], tmin = 0.0f, tmax = 0.0f, best_t = inf;
+    bvh::RayInv ray;
+    const float4* tab = tables;
+    bool active = false, more = true;
+
+    for (;;) {
+        // ---- refill: the warp's idle lanes take the next pairs in order
+        unsigned idle = __ballot_sync(kFull, !active);
+        if (more && __popc(idle) >= kRefill) {
+            int first = 0;
+            if (lane == 0) first = atomicAdd(next, __popc(idle));
+            first = __shfl_sync(kFull, first, 0);
+            more = first + __popc(idle) < L;
+            if (!active) {
+                i = first + __popc(idle & ((1u << lane) - 1u));
+                if (i < L) {
+#pragma unroll
+                    for (int a = 0; a < 3; ++a) {
+                        o[a] = rays[a * L + i];
+                        d[a] = rays[(3 + a) * L + i];
+                    }
+                    tmin = rays[6 * L + i];
+                    tmax = rays[7 * L + i];
+                    ray = bvh::make_ray_inv(o, d, kRobust);
+                    const int t = tid[i];
+                    tab = tables + static_cast<size_t>(t < 0 ? 0 : t) * P * kVec;
+                    sp = top = leaf = asteps = hwm = ovf = 0;
+                    best_t = inf;
+                    out_f[L + i] = 0.0f;
+                    out_f[2 * L + i] = 0.0f;
+                    out_i[i] = -1;
+                    active = t >= 0 && tmin <= tmax;
+                    if (!active) finish(i, L, out_f, out_i, best_t, 0, 0, 0);
+                }
+            }
+            idle = __ballot_sync(kFull, !active);
+        }
+        if (idle == kFull) {
+            if (more) continue;
+            break;
+        }
+        // ---- up to kSteps steps of the pair (a step that enters a quad
+        // leaf is run with the leaf's first)
+        for (int k = 0; k < kSteps && active; ++k) {
+            ++asteps;
+            if ((leaf & 15) == 0 && (top & 15) != 0) {
+                // enter a quad leaf: a step that only sets the cursor (no
+                // pop, no push), run in the same pass as the leaf's first
+                leaf = top;
+                ++asteps;
+            }
+            bool done_by_hit = false, leaf_exhausted = false;
+            bool do_node = false, descend = false;
+            int new_top = 0;
+            if ((leaf & 15) != 0) {
+                // ---- quad leaf step: 4 sequential Möller–Trumbore tests
+                if constexpr ((kAblate & kNoQuad) == 0) {
+                    const float4* c = tab + static_cast<size_t>(leaf >> 4) * kVec;
+                    float4 q[13];
+#pragma unroll
+                    for (int r = 0; r < 13; ++r) q[r] = __ldg(c + r);
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int gpos = static_cast<int>(row(q, j * 13 + 12));
+                        const float cv0 = __fsub_rn(row(q, j * 13 + 0), o[0]);
+                        const float cv1 = __fsub_rn(row(q, j * 13 + 1), o[1]);
+                        const float cv2 = __fsub_rn(row(q, j * 13 + 2), o[2]);
+                        const float r0 = cross_term(d[1], cv2, d[2], cv1);
+                        const float r1 = cross_term(d[2], cv0, d[0], cv2);
+                        const float r2 = cross_term(d[0], cv1, d[1], cv0);
+                        const float n0 = row(q, j * 13 + 9);
+                        const float n1 = row(q, j * 13 + 10);
+                        const float n2 = row(q, j * 13 + 11);
+                        // the correctly rounded reciprocal: 1.0f / x bit for bit
+                        const float inv_det =
+                            __frcp_rn(dot3(n0, n1, n2, d[0], d[1], d[2]));
+                        const float uu = __fmul_rn(
+                            dot3(r0, r1, r2, row(q, j * 13 + 6), row(q, j * 13 + 7),
+                                 row(q, j * 13 + 8)),
+                            inv_det);
+                        const float vv = __fmul_rn(
+                            dot3(r0, r1, r2, row(q, j * 13 + 3), row(q, j * 13 + 4),
+                                 row(q, j * 13 + 5)),
+                            inv_det);
+                        const float ww = __fsub_rn(__fsub_rn(1.0f, uu), vv);
+                        const float tt =
+                            __fmul_rn(dot3(n0, n1, n2, cv0, cv1, cv2), inv_det);
+                        const bool hit = uu >= -bvh::kEps && vv >= -bvh::kEps &&
+                                         ww >= -bvh::kEps && tt >= tmin &&
+                                         tt <= tmax && gpos >= 0 && !done_by_hit;
+                        if (hit) {
+                            best_t = tt;
+                            if (kAnyHit)
+                                done_by_hit = true;
+                            else
+                                tmax = tt;
+                            out_f[L + i] = uu;
+                            out_f[2 * L + i] = vv;
+                            out_i[i] = gpos;
+                        }
+                    }
+                }
+                leaf += 16 - 1;  // the next column, one fewer left
+                leaf_exhausted = (leaf & 15) == 0 && !done_by_hit;
+            } else {
+                // ---- wide inner step: 8 slab tests, sorted multi-push
+                do_node = true;
+                const float4* c = tab + static_cast<size_t>(top >> 4) * kVec;
+                float4 v[14];
+#pragma unroll
+                for (int r = 0; r < 14; ++r) v[r] = __ldg(c + r);
+                float key[8];
+                int word[8];
+                unsigned hits = 0;
+#pragma unroll
+                for (int ch = 0; ch < 8; ++ch) {
+                    float t0 = tmin, t1 = tmax;
+#pragma unroll
+                    for (int a = 0; a < 3; ++a) {
+                        float tn, tf;
+                        bvh::slab_axis(ray, a, row(v, ch * 6 + 2 * a),
+                                       row(v, ch * 6 + 2 * a + 1), kRobust, tn, tf);
+                        t0 = max_nan(tn, t0);
+                        t1 = min_nan(tf, t1);
+                    }
+                    const bool hit = t0 <= t1;
+                    hits |= hit ? 1u << ch : 0u;
+                    key[ch] = hit ? t0 : inf;
+                    word[ch] = static_cast<int>(row(v, 48 + ch));
+                }
+                const int n_hits = __popc(hits);
+                descend = n_hits > 0;
+                if constexpr (kAnyHit) {
+                    // keyed by slot, the network puts the hit slots first in
+                    // slot order: the lowest is descended into, the others
+                    // are pushed from the highest down
+                    const int lowest = __ffs(hits) - 1;
+#pragma unroll
+                    for (int ch = 7; ch >= 0; --ch)
+                        if ((hits >> ch) & 1u) new_top = word[ch];
+                    if constexpr ((kAblate & kNoPush) == 0) {
+#pragma unroll
+                        for (int ch = 7; ch >= 1; --ch)
+                            if (((hits >> ch) & 1u) && ch > lowest)
+                                push(stack, sp, ovf, stack_depth, word[ch]);
+                    }
+                } else {
+                    if constexpr ((kAblate & kNoSort) == 0) bvh::sort8(key, word);
+                    new_top = word[0];
+                    // push far to near, so the nearest remaining pops
+                    // first: word[j] lands n_hits - 1 - j above sp, one
+                    // store each where they all fit, else push by push
+                    if constexpr ((kAblate & kNoPush) == 0) {
+                        if (sp + n_hits - 1 <= stack_depth) {
+#pragma unroll
+                            for (int j = 1; j < 8; ++j)
+                                if (j < n_hits) stack[sp + n_hits - 1 - j] = word[j];
+                            if (n_hits > 1) sp += n_hits - 1;
+                        } else {
+#pragma unroll
+                            for (int j = 7; j >= 1; --j)
+                                if (j < n_hits)
+                                    push(stack, sp, ovf, stack_depth, word[j]);
+                        }
+                    }
+                }
+            }
+            const bool need_pop = (do_node && !descend) || leaf_exhausted;
+            if (descend) {
+                top = new_top;
+            } else if (need_pop) {
+                if (sp > 0)
+                    top = stack[--sp];
+                else
+                    active = false;
+            }
+            if (done_by_hit) active = false;
+            hwm = max(hwm, sp);
+            if (!active) finish(i, L, out_f, out_i, best_t, asteps, hwm, ovf);
+        }
+    }
+}
+
 template <bool kAnyHit, bool kRobust, int kAblate = 0>
-void launch(const float* table, int P, const int* tid, const float* rays,
-            int L, int stack_depth, float* out_f, int* out_i,
-            cudaStream_t stream) {
-    const int block = 128;
+int launch(const float* cols, int P, const int* tid, const float* rays, int L,
+           int stack_depth, float* out_f, int* out_i, int* next,
+           cudaStream_t stream) {
+    // enough warps to fill the card, each taking pairs until none is left
+    static int grid = 0;
+    if (grid == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, wide_treelet_kernel<kAnyHit, kRobust, kAblate>, kBlock, 0);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        grid = sms * per_sm;
+    }
+    const int blocks = (L + kBlock - 1) / kBlock;
+    cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
     wide_treelet_kernel<kAnyHit, kRobust, kAblate>
-        <<<(L + block - 1) / block, block, 0, stream>>>(
-            table, P, tid, rays, L, stack_depth, out_f, out_i);
+        <<<blocks < grid ? blocks : grid, kBlock, 0, stream>>>(
+            cols, P, tid, rays, L, stack_depth, out_f, out_i, next);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// table [T, 64, P] f32; tid [L] i32 (-1 = no pair); rays [8, L] f32
-// (org, dir, tmin, tmax); outputs out_f [3, L] f32 (t, u, v) and
-// out_i [4, L] i32 (prim position or -1, active steps, stack high-water
-// mark, overflow flag). Returns cudaGetLastError() after the launch.
-extern "C" int bvh_wide_treelet_traverse(const float* table, int T, int P,
+// cols [T, P, 64] f32, 16-byte aligned; tid [L] i32 (-1 = no pair); rays
+// [8, L] f32 (org, dir, tmin, tmax); outputs out_f [3, L] f32 (t, u, v)
+// and out_i [4, L] i32 (prim position or -1, active steps, stack
+// high-water mark, overflow flag); next: one int of scratch (the work
+// counter, zeroed on the stream before the launch). Returns the first
+// CUDA error of the launch, or cudaGetLastError() after it.
+extern "C" int bvh_wide_treelet_traverse(const float* cols, int T, int P,
                                          const int* tid, const float* rays,
                                          int L, int any_hit, int robust,
                                          int stack_depth, float* out_f,
-                                         int* out_i, void* stream) {
+                                         int* out_i, int* next, void* stream) {
     (void)T;
-    if (L > 0) {
-        auto s = static_cast<cudaStream_t>(stream);
-        if (any_hit && robust)
-            launch<true, true>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-        else if (any_hit)
-            launch<true, false>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-        else if (robust)
-            launch<false, true>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-        else
-            launch<false, false>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (L <= 0) return static_cast<int>(cudaGetLastError());
+    auto s = static_cast<cudaStream_t>(stream);
+    if (any_hit && robust)
+        return launch<true, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    if (any_hit)
+        return launch<true, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    if (robust)
+        return launch<false, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    return launch<false, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
 }
 
 // The ablation variants of the closest-hit, fast-form kernel, as
 // tools/ablate_kernel.py runs them: `variant` is kNoQuad (1), kNoSort
 // (2) or kNoPush (4); arguments and outputs as
 // bvh_wide_treelet_traverse. Returns cudaErrorInvalidValue for another
-// variant, else cudaGetLastError() after the launch.
-extern "C" int bvh_wide_treelet_ablate(const float* table, int T, int P,
+// variant.
+extern "C" int bvh_wide_treelet_ablate(const float* cols, int T, int P,
                                        const int* tid, const float* rays,
                                        int L, int variant, int stack_depth,
-                                       float* out_f, int* out_i,
+                                       float* out_f, int* out_i, int* next,
                                        void* stream) {
     (void)T;
     auto s = static_cast<cudaStream_t>(stream);
     if (variant != kNoQuad && variant != kNoSort && variant != kNoPush)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (L > 0) {
-        if (variant == kNoQuad)
-            launch<false, false, kNoQuad>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-        else if (variant == kNoSort)
-            launch<false, false, kNoSort>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-        else
-            launch<false, false, kNoPush>(table, P, tid, rays, L, stack_depth, out_f, out_i, s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (L <= 0) return static_cast<int>(cudaGetLastError());
+    if (variant == kNoQuad)
+        return launch<false, false, kNoQuad>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    if (variant == kNoSort)
+        return launch<false, false, kNoSort>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    return launch<false, false, kNoPush>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
 }

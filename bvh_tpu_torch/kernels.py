@@ -124,13 +124,14 @@ _SIGNATURES = {
     # stack_depth, out_f, out_i, stream
     "bvh_binary_traverse_spheres": [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                     _I, _VP, _VP, _VP],
-    # table, T, P, tid, rays, L, any_hit, robust, stack_depth,
-    # out_f, out_i, stream
+    # table_cols, T, P, tid, rays, L, any_hit, robust, stack_depth,
+    # out_f, out_i, next (work counter), stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
-                                  _VP, _VP, _VP],
-    # table, T, P, tid, rays, L, variant, stack_depth, out_f, out_i, stream
+                                  _VP, _VP, _VP, _VP],
+    # table_cols, T, P, tid, rays, L, variant, stack_depth, out_f, out_i,
+    # next, stream
     "bvh_wide_treelet_ablate": [_VP, _I, _I, _VP, _VP, _I, _I, _I,
-                                _VP, _VP, _VP],
+                                _VP, _VP, _VP, _VP],
     # table, C, rays, B, sort8, chains, stack_depth, iters, out, stream
     "bvh_wide_step_probe": [_VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     # table, int8, rows, P, idx, B, iters, out, stream
@@ -140,6 +141,8 @@ _SIGNATURES = {
     "bvh_group_build": [_VP, _VP, _I, _I, _I, _I, _I, _I, _F,
                         _VP, _VP, _VP, _VP, _VP],
     "bvh_group_build_max_p": [ctypes.POINTER(_I)],
+    # P, out
+    "bvh_group_build_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 
@@ -172,6 +175,17 @@ def group_build_max_p() -> int:
     err = library().bvh_group_build_max_p(ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"bvh_group_build_max_p: CUDA error {err}")
+    return out.value
+
+
+def group_build_occupancy(P: int) -> int:
+    """The group build kernel's CTAs that one SM of the current device
+    holds at once at group capacity P (CUDA's occupancy calculator on
+    its registers, threads and shared memory)."""
+    out = _I(0)
+    err = library().bvh_group_build_occupancy(P, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"bvh_group_build_occupancy: CUDA error {err}")
     return out.value
 
 

@@ -51,6 +51,13 @@ def make_chain_table(depth: int, P: int) -> np.ndarray:
     return t
 
 
+def chain_cols(depth: int, P: int, device) -> torch.Tensor:
+    """`make_chain_table` in the column layout [1, P, 64] that kernel B1
+    reads, on `device`."""
+    return wt.column_tables(torch.from_numpy(make_chain_table(depth, P)).to(
+        device))
+
+
 def chain_pairs(B: int, device):
     """All B pairs on treelet 0; rays from the origin along +x, tmin 0,
     tmax 1e30 (:70-80). Returns (tid [B] int32, rays [8, B] f32)."""
@@ -60,53 +67,57 @@ def chain_pairs(B: int, device):
     return torch.zeros(B, dtype=torch.int32, device=device), rays
 
 
-def traverse_pairs_ablate(table, tid, rays, *, variant: int,
+def traverse_pairs_ablate(table_cols, tid, rays, *, variant: int,
                           stack_depth: int):
     """Kernel B1's closest-hit, fast-form traversal with the code of
     `variant` (one of `VARIANTS`' masks) left out: the CUDA kernel for
-    CUDA tensors, `traverse_pairs_ref(..., ablate=variant)` for CPU
-    tensors. Inputs and outputs as `traverse_pairs`."""
+    CUDA tensors, `traverse_pairs_plain(..., ablate=variant)` for CPU
+    tensors. Inputs (the column tables [T, P, 64]) and outputs as
+    `traverse_pairs`."""
     if variant not in VARIANTS.values():
         raise ValueError(f"traverse_pairs_ablate: unknown variant {variant}")
     if rays.device.type == "cpu":
-        return wt.traverse_pairs_ref(table, tid, rays, any_hit=False,
-                                     robust=False, stack_depth=stack_depth,
-                                     ablate=variant)
+        return wt.traverse_pairs_plain(table_cols, tid, rays, any_hit=False,
+                                       robust=False, stack_depth=stack_depth,
+                                       ablate=variant)
     if rays.device.type != "cuda":
         raise ValueError(f"traverse_pairs_ablate: unsupported device "
                          f"{rays.device}")
-    wt.check_pair_inputs("traverse_pairs_ablate", table, tid, rays,
+    wt.check_pair_inputs("traverse_pairs_ablate", table_cols, tid, rays,
                          stack_depth)
     L = tid.shape[0]
     out_f = torch.empty((3, L), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, L), dtype=torch.int32, device=rays.device)
+    work = torch.empty(1, dtype=torch.int32, device=rays.device)
     kernels.WIDE_TREELET_ABLATE.launch(
-        table.data_ptr(), table.shape[0], table.shape[2], tid.data_ptr(),
-        rays.data_ptr(), L, variant, stack_depth, out_f.data_ptr(),
-        out_i.data_ptr())
+        table_cols.data_ptr(), table_cols.shape[0], table_cols.shape[1],
+        tid.data_ptr(), rays.data_ptr(), L, variant, stack_depth,
+        out_f.data_ptr(), out_i.data_ptr(), work.data_ptr())
     return out_f, out_i
 
 
-def _full(table, tid, rays, sd):
-    return wt.traverse_pairs(table, tid, rays, any_hit=False, robust=False,
-                             stack_depth=sd)
+def _full(table_cols, tid, rays, sd):
+    return wt.traverse_pairs(table_cols, tid, rays, any_hit=False,
+                             robust=False, stack_depth=sd)
 
 
-def check_chain(table, tid, rays, depth: int, stack_depth: int = 24) -> dict:
-    """The full kernel against its plain version, and every variant
-    against the full kernel, bit for bit on every lane; every lane's
-    active steps must be `depth`. Raises otherwise. Returns the full
-    kernel's output."""
-    full = _full(table, tid, rays, stack_depth)
-    plain = wt.traverse_pairs_ref(table, tid, rays, any_hit=False,
-                                  robust=False, stack_depth=stack_depth)
+def check_chain(table_cols, tid, rays, depth: int,
+                stack_depth: int = 24) -> dict:
+    """On the chain table in the column layout (`chain_cols`): the full
+    kernel against its plain version, and every variant against the
+    full kernel, bit for bit on every lane; every lane's active steps
+    must be `depth`. Raises otherwise. Returns the full kernel's
+    output."""
+    full = _full(table_cols, tid, rays, stack_depth)
+    plain = wt.traverse_pairs_plain(table_cols, tid, rays, any_hit=False,
+                                    robust=False, stack_depth=stack_depth)
     if not same(full, plain):
         raise AssertionError("B1 on the chain table differs from its plain "
                              "version")
     if not bool((full[1][1] == depth).all()):
         raise AssertionError(f"chain table: active steps are not {depth}")
     for name, v in VARIANTS.items():
-        got = traverse_pairs_ablate(table, tid, rays, variant=v,
+        got = traverse_pairs_ablate(table_cols, tid, rays, variant=v,
                                     stack_depth=stack_depth)
         if not same(got, full):
             raise AssertionError(f"variant '{name}' differs from the full "
@@ -121,7 +132,7 @@ def measure(name, launch, P, B, device, n=5) -> dict:
     tid, rays = chain_pairs(B, device)
     ms = {}
     for depth in (16, P - 16):
-        table = torch.from_numpy(make_chain_table(depth, P)).to(device)
+        table = chain_cols(depth, P, device)
         ref = _full(table, tid, rays, 24)
         ms[depth] = timed(f"{name} depth {depth}", lambda: launch(
             table, tid, rays), ref, device, n)
@@ -138,12 +149,12 @@ def run(B=1024, P=384, device="cuda", n=5) -> dict:
     tid, rays = chain_pairs(B, device)
     checks = {}
     for depth in (16, P - 16):
-        table = torch.from_numpy(make_chain_table(depth, P)).to(device)
-        checks[depth] = check_chain(table, tid, rays, depth)
+        checks[depth] = check_chain(chain_cols(depth, P, device), tid, rays,
+                                    depth)
     log(f"# T1 chain table, B={B} P={P}: B1, its plain version and every "
         f"variant equal on every lane; active steps = depth (16, {P - 16})")
-    table = torch.from_numpy(make_chain_table(P - 16, P)).to(device)
-    plain_ms, _ = time_calls(lambda: wt.traverse_pairs_ref(
+    table = chain_cols(P - 16, P, device)
+    plain_ms, _ = time_calls(lambda: wt.traverse_pairs_plain(
         table, tid, rays, any_hit=False, robust=False, stack_depth=24),
         device, 1)
     out = dict(checks=checks, plain_ms=plain_ms, table=table, tid=tid,

@@ -90,7 +90,7 @@ def run(tl, rays, device, reps: int = 3) -> dict:
         prays = torch.zeros((8, L), dtype=torch.float32, device=packed.device)
 
         def idle(tid=tid, prays=prays):
-            return wt.traverse_pairs(tl.table, tid, prays, any_hit=False,
+            return wt.traverse_pairs(tl.table_cols, tid, prays, any_hit=False,
                                      robust=False,
                                      stack_depth=caps["stack_depth"])
 

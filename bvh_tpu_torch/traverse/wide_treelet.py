@@ -5,7 +5,8 @@ into treelets of at most `max_prims` primitives; the top region above
 them becomes a binary pair table, and each treelet is collapsed into
 8-wide nodes with quad leaves of 4 triangles, all in one [64, P] f32
 table per treelet (`build_wide_treelets`, host numpy copied from the
-reference, tensor outputs). A render then runs in two phases:
+reference, tensor outputs), plus a column-contiguous copy [P, 64] of
+each that kernel B1 reads. A render then runs in two phases:
 
 - phase A (kernel B2, traverse/collect.py) walks the top region per
   ray and records every portal (treelet entry) with its entry distance;
@@ -76,6 +77,10 @@ class WideTreelets(NamedTuple):
                              quad leaves (rows q*13..q*13+11 triangle
                              p0|e1|e2|n, q*13+12 global prim position,
                              -1 padding).
+    table_cols: [T, P, 64]   `table` transposed and contiguous, made once
+                             per scene on the device: one column's 64
+                             floats in 256 contiguous bytes, the layout
+                             kernel B1 reads.
     n_prims:    int          total primitive positions.
     n_wide:     np.ndarray   [T] wide-node column count per treelet.
     top_depth:  int          top-region depth + 1 (phase-A stack bound).
@@ -88,6 +93,7 @@ class WideTreelets(NamedTuple):
     top_node_t: torch.Tensor
     top_root: int
     table: torch.Tensor
+    table_cols: torch.Tensor
     n_prims: int
     n_wide: np.ndarray
     top_depth: int
@@ -96,15 +102,23 @@ class WideTreelets(NamedTuple):
     sup_depth: int
 
 
+def column_tables(table: torch.Tensor) -> torch.Tensor:
+    """The column-contiguous copy [T, P, 64] of treelet tables [T, 64, P],
+    made on the tables' device."""
+    return table.transpose(1, 2).contiguous()
+
+
 def wide_treelets_from_numpy(tl, device) -> WideTreelets:
     """Carry a treelet scene whose fields convert with np.asarray (for
-    example a `bvh_tpu` WideTreelets) across onto `device`."""
+    example a `bvh_tpu` WideTreelets) across onto `device`, with the
+    column copy of its tables made there."""
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
+    table = t(tl.table)
     return WideTreelets(
         top_node_t=t(tl.top_node_t), top_root=int(tl.top_root),
-        table=t(tl.table), n_prims=int(tl.n_prims),
+        table=table, table_cols=column_tables(table), n_prims=int(tl.n_prims),
         n_wide=np.asarray(tl.n_wide, np.int64),
         top_depth=int(tl.top_depth), wide_depth=int(tl.wide_depth),
         sup_table=t(tl.sup_table), sup_depth=int(tl.sup_depth))
@@ -521,10 +535,12 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
         if in_region[lev].any():
             top_depth = li + 2
 
+    table_t = torch.as_tensor(table, device=device)
     return WideTreelets(
         top_node_t=torch.as_tensor(top_node_t, device=device),
         top_root=top_root,
-        table=torch.as_tensor(table, device=device),
+        table=table_t,
+        table_cols=column_tables(table_t),
         n_prims=len(prim_ids),
         n_wide=np.asarray(n_wide[:T], np.int64),
         top_depth=top_depth,
@@ -695,20 +711,32 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
     return out_f, out_i
 
 
-def check_pair_inputs(name, table, tid, rays, stack_depth: int) -> None:
-    """Raise ValueError unless B1's inputs on a CUDA device are what its
-    kernel takes: a contiguous [T, 64, P] f32 table, [L] int32 tid and
-    [8, L] f32 rays on one device, and a stack within the compiled
-    capacity."""
+def traverse_pairs_plain(table_cols, tid, rays, *, any_hit: bool,
+                         robust: bool, stack_depth: int, ablate: int = 0):
+    """`traverse_pairs_ref` on the column copy [T, P, 64] of the tables,
+    on any device: the plain version in the layout that `traverse_pairs`
+    and the render's `traverse` argument take."""
+    return traverse_pairs_ref(table_cols.transpose(1, 2), tid, rays,
+                              any_hit=any_hit, robust=robust,
+                              stack_depth=stack_depth, ablate=ablate)
+
+
+def check_pair_inputs(name, table_cols, tid, rays, stack_depth: int) -> None:
+    """Raise ValueError unless B1's inputs are what its kernel takes: a
+    contiguous, 16-byte aligned [T, P, 64] f32 column table
+    (`WideTreelets.table_cols`, not the [T, 64, P] `table`), [L] int32
+    tid and [8, L] f32 rays on one device, and a stack within the
+    compiled capacity."""
     if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
         raise ValueError(f"{name}: stack depth {stack_depth} "
                          f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
     L = tid.shape[0]
-    if (table.dtype != torch.float32 or table.dim() != 3
-            or table.shape[1] != ROWS or not table.is_contiguous()
-            or table.device != rays.device):
-        raise ValueError(f"{name}: table must be a contiguous "
-                         f"[T, {ROWS}, P] float32 tensor on {rays.device}")
+    if (table_cols.dtype != torch.float32 or table_cols.dim() != 3
+            or table_cols.shape[2] != ROWS or not table_cols.is_contiguous()
+            or table_cols.data_ptr() % 16 or table_cols.device != rays.device):
+        raise ValueError(f"{name}: the table must be the column layout, a "
+                         f"contiguous 16-byte aligned [T, P, {ROWS}] float32 "
+                         f"tensor on {rays.device} (WideTreelets.table_cols)")
     if (tid.dtype != torch.int32 or tid.dim() != 1 or not tid.is_contiguous()
             or tid.device != rays.device):
         raise ValueError(f"{name}: tid must be a contiguous [L] "
@@ -719,24 +747,26 @@ def check_pair_inputs(name, table, tid, rays, stack_depth: int) -> None:
                          "float32 tensor")
 
 
-def traverse_pairs(table, tid, rays, *, any_hit: bool, robust: bool,
+def traverse_pairs(table_cols, tid, rays, *, any_hit: bool, robust: bool,
                    stack_depth: int):
-    """Wide treelet traversal of (ray, treelet) pairs: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. Same inputs
-    and outputs as `traverse_pairs_ref`."""
+    """Wide treelet traversal of (ray, treelet) pairs over the column
+    tables [T, P, 64] (`WideTreelets.table_cols`): the CUDA kernel for
+    CUDA tensors, the plain version (`traverse_pairs_plain`) for CPU
+    tensors. Outputs as `traverse_pairs_ref`."""
     if rays.device.type == "cpu":
-        return traverse_pairs_ref(table, tid, rays, any_hit=any_hit,
-                                  robust=robust, stack_depth=stack_depth)
+        return traverse_pairs_plain(table_cols, tid, rays, any_hit=any_hit,
+                                    robust=robust, stack_depth=stack_depth)
     if rays.device.type != "cuda":
         raise ValueError(f"traverse_pairs: unsupported device {rays.device}")
-    check_pair_inputs("traverse_pairs", table, tid, rays, stack_depth)
+    check_pair_inputs("traverse_pairs", table_cols, tid, rays, stack_depth)
     L = tid.shape[0]
     out_f = torch.empty((3, L), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, L), dtype=torch.int32, device=rays.device)
+    work = torch.empty(1, dtype=torch.int32, device=rays.device)
     kernels.WIDE_TREELET.launch(
-        table.data_ptr(), table.shape[0], table.shape[2], tid.data_ptr(),
-        rays.data_ptr(), L, int(any_hit), int(robust), stack_depth,
-        out_f.data_ptr(), out_i.data_ptr())
+        table_cols.data_ptr(), table_cols.shape[0], table_cols.shape[1],
+        tid.data_ptr(), rays.data_ptr(), L, int(any_hit), int(robust),
+        stack_depth, out_f.data_ptr(), out_i.data_ptr(), work.data_ptr())
     return out_f, out_i
 
 
@@ -1036,7 +1066,7 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
         validk, pk, pr, ptid, prays = stage(
             "round_pairs", round_pairs, portals, cur, tmax, live, rays_c,
             octant, rsel, k)
-        out_f, out_i = stage("b1", traverse, tl.table, ptid, prays,
+        out_f, out_i = stage("b1", traverse, tl.table_cols, ptid, prays,
                              any_hit=any_hit, robust=robust,
                              stack_depth=stack_depth)
         diag["rounds"] += 1
@@ -1116,8 +1146,9 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     """`wide_treelet_intersect_tris` with phase A, the pair traversal and
     phase A2 given as `collect`, `traverse` and `collect_super`: the
     kernels' dispatchers, or their plain versions (`collect_portals_ref`,
-    `traverse_pairs_ref`, `collect_super_pairs_ref`) to run the render
-    without the kernels on any device."""
+    `traverse_pairs_plain`, `collect_super_pairs_ref`) to run the render
+    without the kernels on any device. `traverse` is given the column
+    tables `tl.table_cols`."""
     auto = wide_treelet_caps(tl, portals_per_round(tl))
     caps = dict(
         top_stack=top_stack if top_stack is not None else tl.top_depth + 1,

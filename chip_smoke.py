@@ -14,19 +14,22 @@ exits non-zero):
 2. scene: sponza_class(262144, 0), prim boxes and centres in numpy on
    the host (bench.py:88-90), and the native quality-high build on the
    host (mini-tree + reinsertion, thread pool) for comparison;
-3. staging: the Morton-grid groups and the launch shape (G, P, NCAP);
+3. staging: the Morton-grid groups and the launch shape (G, P, NCAP),
+   and the CTAs of kernel B3 one SM holds at that P (CUDA's occupancy
+   calculator) times the SMs: all G groups in one wave or not;
 4. kernel B3 (per-group binned SAH) against its plain version on the
    full staging: nbf, nbi, source lanes and node counts equal bit for
-   bit;
+   bit; the tree's levels and open nodes, which B3's bound counts;
 5. the build path: `build_minitree_fast` + `optimize_reinsertion` on the
    card with launch counts reset before and read after; the same build
    through B3's plain version, also on the card; both trees equal bit
    for bit; the tree's invariants (every prim once, leaves tile [0, n),
    inner boxes the exact merge of their children, total half-area not
    grown by reinsertion);
-6. treelet tables of the port's tree; kernel B2 (phase-A collect) and
-   kernel B1 (wide treelet traversal) against their plain versions on
-   all 1024 x 1024 primary rays and their first-round pairs, bit for bit;
+6. treelet tables of the port's tree (and their column copy, which B1
+   reads); kernel B2 (phase-A collect) and kernel B1 (wide treelet
+   traversal) against their plain versions on all 1024 x 1024 primary
+   rays and their first-round pairs, bit for bit;
 7. the render path on the port's tree: the primary render (closest hit)
    and the shadow render (any-hit toward a point light) through the
    kernels, with launch counts reset before and read after;
@@ -152,6 +155,12 @@ PEAK_F32_PER_S = 67e12
 # slab tests (144); a recorded portal came from a node step of 2 boxes
 # that records at most 2 portals (18).
 OPS_BOX, OPS_TRI, OPS_WIDE_STEP, OPS_PORTAL = 18, 40, 144, 18
+# Kernel B3, counted over the open nodes of every level the plain version
+# runs: a lane's binning (3 axes of a multiply, an add and two clamps, and
+# 18 min/max) 30, its partition compare 1; a node's SAH sweep, 3 axes x 14
+# prefixes x (6 min/max, a half-area of 3 differences, 2 sums and 2
+# products, and a cost of a product and a sum) 630.
+OPS_BIN_LANE, OPS_PART_LANE, OPS_SWEEP_NODE = 30, 1, 630
 # Kernel B6, as lower bounds too: one box axis (two planes, a multiply
 # and an add each, a max and a min) 6; a sphere test 20 beyond its
 # per-axis work (oc, three products and sums: 6 an axis): 2b, r*r, c,
@@ -165,8 +174,10 @@ SCALE_M, SCALE_RAYS = 262_144, 1 << 20
 F64_M, F64_RAYS = 1024, 16_384
 F64_BIG, F64_BIG_RAYS = 262_144, 65_536
 F64_CHECK = 256  # every 256th ray against the brute-force minimum
-# Phase 17: tools/ablate_kernel.py's lanes and table width
-T1_B, T1_P = 1024, 384
+# Phase 17: tools/ablate_kernel.py's lanes and table width, and the
+# launches whose median each T1 time is (a launch is 0.05-0.4 ms, so
+# the tool's 5 leave its per-step difference noisy)
+T1_B, T1_P, T1_REPS = 1024, 384, 21
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 DEV = "cuda"
@@ -226,6 +237,34 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def b3_work(nbi, cnt, NCAP: int, min_leaf: int) -> dict:
+    """From B3's node table: the levels of the deepest group (the
+    iterations of the level-synchronous plain version), the open nodes
+    (more than min_leaf lanes: binned and swept) and their lanes, over
+    all groups, and the float operations they take (`OPS_*` above)."""
+    G = cnt.numel()
+    rows = nbi.view(8, G, NCAP).long()
+    size, child = rows[1] - rows[0], rows[2]
+    slot = torch.arange(NCAP, device=nbi.device)[None, :]
+    live = slot < cnt.long()[:, None]
+    opn = live & (size > min_leaf)
+    level = torch.full((G, NCAP), -1, dtype=torch.long, device=nbi.device)
+    level[:, 0] = 0
+    depth = 0
+    while True:
+        g, s_ = torch.nonzero((level == depth) & live & (child >= 0),
+                              as_tuple=True)
+        if g.numel() == 0:
+            break
+        level[g, child[g, s_]] = depth + 1
+        level[g, child[g, s_] + 1] = depth + 1
+        depth += 1
+    nodes, lanes = int(opn.sum()), int(size[opn].sum())
+    return dict(levels=depth + 1, open_nodes=nodes, lanes=lanes,
+                ops=lanes * (OPS_BIN_LANE + OPS_PART_LANE)
+                + nodes * OPS_SWEEP_NODE)
 
 
 def tree_checks(bvh, n: int) -> dict:
@@ -497,7 +536,7 @@ def two_level_phase() -> dict:
     r = res.rays
     ph = wt._intersect(tl, Ray(r.org[sub], r.dir[sub], r.tmin[sub],
                                r.tmax[sub]), res.bvh.prim_ids,
-                       col.collect_portals_ref, wt.traverse_pairs_ref,
+                       col.collect_portals_ref, wt.traverse_pairs_plain,
                        collect_super=col.collect_super_pairs_ref)
     d_ = {f: int((bits(getattr(res.hit, f)[sub]) != bits(getattr(ph, f)))
                  .sum()) for f in ("t", "prim_pos")}
@@ -551,8 +590,11 @@ def two_level_phase() -> dict:
     same_build = (tree.node_count == res.bvh.node_count
                   and same(tree.index, res.bvh.index)
                   and same(tree.prim_ids, res.bvh.prim_ids))
+    resident = kernels.group_build_occupancy(plan.P) * \
+        torch.cuda.get_device_properties(0).multi_processor_count
     log(f"# San-Miguel class build stage by stage, ms (CUDA events; G="
-        f"{plan.G} P={plan.P}): "
+        f"{plan.G} P={plan.P}, B3 in {-(-plan.G // resident)} waves of "
+        f"{resident} groups): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; tree == the CLI's: {same_build}")
     if not same_build:
@@ -1043,7 +1085,7 @@ def tool_kernels_phase() -> dict:
         f"inputs that hit: kernel {ms5:.4f} ms, plain {plain5:.3f} ms, "
         f"bound {out['t5']['bound'][0]:.5f} ms ({out['t5']['bound'][1]})")
     # T1: the chain check, then each variant's cost per step
-    r1 = t1.run(T1_B, T1_P, DEV)
+    r1 = t1.run(T1_B, T1_P, DEV, n=T1_REPS)
     full = r1["checks"][T1_P - 16]["out"]
     asteps = int(full[1][1].sum())
     out["t1"] = dict(
@@ -1118,6 +1160,12 @@ def run() -> dict:
     log(f"# staging: G={plan.G} P={plan.P} NCAP={plan.NCAP} (groups of "
         f"{int(plan.counts.min())}..{int(plan.counts.max())} prims; the "
         f"kernel takes P <= {kernels.group_build_max_p()} on this card)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b3_occ = kernels.group_build_occupancy(plan.P)
+    log(f"# B3 occupancy at P={plan.P}: {b3_occ} resident CTAs an SM x "
+        f"{sms} SMs = {b3_occ * sms} for G={plan.G} groups: "
+        + ("one wave" if b3_occ * sms >= plan.G else
+           f"{-(-plan.G // (b3_occ * sms))} waves"))
 
     # ---- 4. B3 against its plain version on the full staging ----------
     b3_out = gk.group_forest_build(pf, plan.counts, **b3_kw)
@@ -1131,6 +1179,10 @@ def run() -> dict:
         f"{int(b3_out[3].max())} (NCAP {plan.NCAP})")
     if not same(b3_out, b3_ref):
         raise AssertionError("B3 kernel and plain version differ")
+    b3w = b3_work(b3_out[1], b3_out[3], plan.NCAP, cfg.min_leaf_size)
+    log(f"# B3 work at G={plan.G}: {b3w['levels']} levels, "
+        f"{b3w['open_nodes']} open nodes, {b3w['lanes']} lanes binned, "
+        f"{b3w['ops']} float operations")
 
     # ---- 5. the build path, through B3 and through its plain version --
     kernels.reset_launch_counts()
@@ -1220,7 +1272,7 @@ def run() -> dict:
         outs = {}
         for any_hit in (False, True):
             kw = dict(any_hit=any_hit, robust=False, stack_depth=sd)
-            kf, ki = wt.traverse_pairs(tl.table, ptid, prays, **kw)
+            kf, ki = wt.traverse_pairs(tl.table_cols, ptid, prays, **kw)
             pf_, pi = wt.traverse_pairs_ref(tl.table, ptid, prays, **kw)
             hk, hp = torch.isfinite(kf[0]), torch.isfinite(pf_[0])
             both = hk & hp
@@ -1294,7 +1346,7 @@ def run() -> dict:
                                 ("shadow", srays, shit, True)):
         rsub = Ray(r.org[sub], r.dir[sub], r.tmin[sub], r.tmax[sub])
         ph = wt._intersect(tl, rsub, prim_ids, col.collect_portals_ref,
-                           wt.traverse_pairs_ref, any_hit=any_hit)
+                           wt.traverse_pairs_plain, any_hit=any_hit)
         fields = ("t", "u", "v", "prim_pos", "prim_id")
         d_ = {f: int((bits(getattr(h, f)[sub]) != bits(getattr(ph, f))).sum())
               for f in fields}
@@ -1372,7 +1424,7 @@ def run() -> dict:
             ("b2_plain", lambda: col.collect_portals_ref(
                 tl.top_node_t, packed, tl.top_root, **b2_kw), 2, k_out),
             ("b1_kernel", lambda: wt.traverse_pairs(
-                tl.table, ptid, prays, **b1_kw), 20, b1_ref),
+                tl.table_cols, ptid, prays, **b1_kw), 20, b1_ref),
             ("b1_plain", lambda: wt.traverse_pairs_ref(
                 tl.table, ptid, prays, **b1_kw), 2, b1_ref),
             ("b3_kernel", lambda: gk.group_forest_build(
@@ -1384,6 +1436,9 @@ def run() -> dict:
             raise AssertionError(f"timed {name} output diverged")
         timings[f"{name}_ms"] = ms
         log(f"# {name}: {ms:.3f} ms/call (last output == verified run)")
+    log(f"# B3 at G={plan.G} P={plan.P}: {timings['b3_kernel_ms']:.4f} ms "
+        f"({b3_occ} CTAs an SM); B1 round 1, {ptid.numel()} pairs: "
+        f"{timings['b1_kernel_ms']:.4f} ms")
 
     # the device build stage by stage, CUDA events between the stages
     stage_names = ("staging", "b3", "assemble", "reinsertion")
@@ -1424,7 +1479,7 @@ def run() -> dict:
     bounds["b1"] = bound(nbytes(ptid, prays, *b1_ref)
                          + min(nbytes(tl.table), 256 * asteps),
                          OPS_WIDE_STEP * asteps)
-    bounds["b3"] = bound(nbytes(pf, plan.counts, *b3_out), 0)
+    bounds["b3"] = bound(nbytes(pf, plan.counts, *b3_out), b3w["ops"])
     for k, (ms, by) in bounds.items():
         log(f"# bound of {k} at the timed shapes: {ms:.4f} ms ({by})")
 

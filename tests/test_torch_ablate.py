@@ -61,7 +61,7 @@ def test_chain_steps_match_traverse_core(depth):
 def test_variants_equal_full_on_chain(depth):
     """`check_chain` on the CPU: the dispatchers take the plain versions,
     every variant equals the full traversal on every lane."""
-    table = torch.from_numpy(ak.make_chain_table(depth, P))
+    table = ak.chain_cols(depth, P, "cpu")
     tid, rays = ak.chain_pairs(LANES, "cpu")
     res = ak.check_chain(table, tid, rays, depth)
     assert (res["out"][1][1] == depth).all()
@@ -73,10 +73,10 @@ def test_variants_leave_out_their_code(scene, pairs):
     stack use; no sort changes the traversal order, so the steps."""
     tid, rays = pairs
     sd = 7 * scene["ttl"].wide_depth + 8
-    table = scene["ttl"].table
+    table, cols = scene["ttl"].table, scene["ttl"].table_cols
     full = twt.traverse_pairs_ref(table, tid, rays, any_hit=False,
                                   robust=False, stack_depth=sd)
-    out = {name: ak.traverse_pairs_ablate(table, tid, rays, variant=v,
+    out = {name: ak.traverse_pairs_ablate(cols, tid, rays, variant=v,
                                           stack_depth=sd)
            for name, v in ak.VARIANTS.items()}
     assert torch.isfinite(full[0][0]).sum() > 50 and full[1][2].max() > 0
@@ -85,4 +85,4 @@ def test_variants_leave_out_their_code(scene, pairs):
     assert not out["no stack pushes"][1][2].any()
     assert not torch.equal(out["no sort8"][1][1], full[1][1])
     with pytest.raises(ValueError, match="unknown variant"):
-        ak.traverse_pairs_ablate(table, tid, rays, variant=3, stack_depth=sd)
+        ak.traverse_pairs_ablate(cols, tid, rays, variant=3, stack_depth=sd)

@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
-CUDA device: the render kernels (B1, B2), the binary traversal (B5) and
-the sphere traversal at dims 2, 3 and 4 (B6) in every mode
-(closest/any-hit x fast/robust), phase A2 (B4) and the two-level
-render, the group build (B3) on groups that reach each of its
-branches, and the profiling tools' kernels (T6 column fetch, T5 wide
+CUDA device: the render kernels (B1 on the column tables, B2), the
+binary traversal (B5) and the sphere traversal at dims 2, 3 and 4 (B6)
+in every mode (closest/any-hit x fast/robust), phase A2 (B4) and the
+two-level render, the group build (B3) on groups that reach each of its
+branches on its warp path and its CTA path, and the profiling tools' kernels (T6 column fetch, T5 wide
 step probe, T1 B1's ablation variants). They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
@@ -106,12 +106,35 @@ def test_traverse_kernel_equals_plain(scene, any_hit, robust):
     kw = dict(any_hit=any_hit, robust=robust,
               stack_depth=7 * tl.wide_depth + 8)
     before = kernels.WIDE_TREELET.launches
-    gf, gi = wt.traverse_pairs(tl.table, tid, prays, **kw)
+    gf, gi = wt.traverse_pairs(tl.table_cols, tid, prays, **kw)
     assert kernels.WIDE_TREELET.launches == before + 1
     pf, pi = wt.traverse_pairs_ref(tl.table, tid, prays, **kw)
     assert torch.equal(_bits(gf), _bits(pf))
     assert torch.equal(gi, pi)
     assert int(torch.isfinite(gf[0]).sum()) > 100
+
+
+def _round_pairs(tl, rays):
+    portals = wt.collect_and_sort(tl, wt.pack_rays(rays), robust=False,
+                                  top_stack=tl.top_depth + 1, max_portals=64)
+    kk, rr = torch.nonzero(portals.tid >= 0, as_tuple=True)
+    tid = portals.tid[kk, rr].to(torch.int32)
+    return tid, wt.pack_rays(rays)[:, portals.sel[rr]].contiguous()
+
+
+@pytest.mark.parametrize("stack_depth", [1, 2])
+def test_traverse_kernel_stack_overflow(scene, stack_depth):
+    """A stack of 1 or 2 entries overflows: kernel and plain version drop
+    the same bottom entries, and give the same sticky flags and
+    high-water marks, which never pass the stack."""
+    tl, rays, _ = scene
+    tid, prays = _round_pairs(tl, rays)
+    kw = dict(any_hit=False, robust=False, stack_depth=stack_depth)
+    gf, gi = wt.traverse_pairs(tl.table_cols, tid, prays, **kw)
+    pf, pi = wt.traverse_pairs_ref(tl.table, tid, prays, **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    assert gi[3].any() and not gi[3][gi[2] < stack_depth].any()
+    assert int(gi[2].max()) == stack_depth
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -121,7 +144,7 @@ def test_render_kernels_equal_plain_render(scene, any_hit, robust):
     kw = dict(any_hit=any_hit, robust=robust)
     got = wt.wide_treelet_intersect_tris(tl, rays, prim_ids, **kw)
     want = wt._intersect(tl, rays, prim_ids, col.collect_portals_ref,
-                         wt.traverse_pairs_ref, **kw)
+                         wt.traverse_pairs_plain, **kw)
     for f in ("t", "u", "v", "prim_pos", "prim_id"):
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
     hits = int(torch.isfinite(got.t).sum())
@@ -134,7 +157,7 @@ def test_render_kernels_equal_plain_render(scene, any_hit, robust):
                      tmax=torch.ones_like(got.t))
         a = wt.wide_treelet_intersect_tris(tl, s, prim_ids, any_hit=True)
         b = wt._intersect(tl, s, prim_ids, col.collect_portals_ref,
-                          wt.traverse_pairs_ref, any_hit=True)
+                          wt.traverse_pairs_plain, any_hit=True)
         assert np.array_equal(torch.isfinite(a.t).cpu().numpy(),
                               torch.isfinite(b.t).cpu().numpy())
 
@@ -168,11 +191,13 @@ def group_build_case(sizes, P, seed=0, coincident=(), points=(), flat=()):
     return pf, np.asarray(sizes, np.int32)
 
 
-# every branch of the kernel: a group of 1 prim and a min_leaf-sized
-# root (no node to split), a pair, a node just above max_leaf, coincident
-# centres (SAH finds no split: median fallback, all ties), point boxes
-# (flat bscale on every axis: every lane in bin 0), boxes flat on one
-# axis, and full groups
+# every branch of the kernel: empty groups, a group of 1 prim and a
+# min_leaf-sized root (no node to split), a pair, a node just above
+# max_leaf, coincident centres (SAH finds no split: median fallback, all
+# ties), point boxes (flat bscale on every axis: every lane in bin 0),
+# boxes flat on one axis, and full groups. Roots of at most 128 lanes
+# start on the warp path; larger nodes take the CTA path, and with
+# min_leaf 128 every node that is split does.
 # (P, sizes, case keywords, build keywords)
 GROUP_CASES = {
     "p128_branches": (128, [1, 2, 9, 40, 128, 100, 77, 128],
@@ -180,6 +205,15 @@ GROUP_CASES = {
     "p128_min_leaf2": (128, [2, 3, 1, 128], dict(coincident=(3,)),
                        dict(min_leaf=2, max_leaf=4)),
     "p1024_full": (1024, [1024, 600, 1000], dict(flat=(1,)), {}),
+    "p128_sizes_0_1_2": (128, [0, 1, 2, 0, 2, 1], {}, {}),
+    "p128_warp_fallback": (128, [128, 97, 128, 64, 33],
+                           dict(coincident=(0, 3), points=(1,), flat=(2, 4)),
+                           {}),
+    "p1024_fallback_both_paths": (1024, [1024, 1000, 700, 129],
+                                  dict(coincident=(0, 3), points=(1,),
+                                       flat=(2,)), {}),
+    "p1024_cta_only": (1024, [1024, 900, 513], dict(flat=(2,)),
+                       dict(min_leaf=128, max_leaf=256)),
 }
 
 
@@ -198,11 +232,52 @@ def test_group_build_kernel_equals_plain(case):
                                      **build_kw)
     for g, w in zip(got, want):
         assert torch.equal(_bits(g), _bits(w))
-    assert got[3].tolist() == want[3].tolist() and int(got[3].max()) > 1
+    assert got[3].tolist() == want[3].tolist()
+    assert int(got[3].max()) > 1 or max(sizes) <= 2
+
+
+def test_group_build_at_max_p():
+    """P at the largest multiple of 128 within `group_build_max_p()`, one
+    full group and one of P - 3 prims: equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    P = kernels.group_build_max_p() // 128 * 128
+    pf, sz = group_build_case([P, P - 3], P, seed=7, flat=(1,))
+    pf_d, sz_d = torch.from_numpy(pf).cuda(), torch.from_numpy(sz).cuda()
+    got = gk.group_forest_build(pf_d, sz_d, dim=3, P=P)
+    want = gk.group_forest_build_ref(pf_d, sz_d, dim=3, P=P)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def test_group_build_main_path_staging_one_wave():
+    """The 262K build's staging (sponza_class(262144, 0), as chip_smoke.py
+    stages it): B3 equal to its plain version on every group, and the
+    card holds all G groups at once (CTAs per SM x SMs >= G)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.build import minitree_fast as mtf
+
+    tris = sponza_class(262_144, seed=0)
+    mn, mx, cc = (torch.from_numpy(a).cuda() for a in (
+        tris.min(axis=1), tris.max(axis=1), tris.mean(axis=1)))
+    plan = mtf.staging_plan(cc)
+    pf, _ = mtf.pack_groups(mn, mx, cc, plan)
+    cfg = plan.config
+    kw = dict(dim=3, P=plan.P, NCAP=plan.NCAP, min_leaf=cfg.min_leaf_size,
+              max_leaf=cfg.max_leaf_size,
+              log_cluster=cfg.sah.log_cluster_size,
+              cost_ratio=cfg.sah.cost_ratio)
+    got = gk.group_forest_build(pf, plan.counts, **kw)
+    want = gk.group_forest_build_ref(pf, plan.counts, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernels.group_build_occupancy(plan.P) * sms >= plan.G
 
 
 def test_group_build_raises_beyond_shared_memory():
-    """A P whose 80 bytes per lane exceed a block's shared memory is
+    """A P whose 44 bytes per lane exceed a block's shared memory is
     refused with the numbers, never handed to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -322,7 +397,7 @@ def test_two_level_render_equals_plain_render(two_level, any_hit, robust):
                                                return_diag=True, **kw)
     assert kernels.COLLECT_SUPER.launches > before and diag["a2_rounds"] > 0
     want = wt._intersect(tl, rays, prim_ids, col.collect_portals_ref,
-                         wt.traverse_pairs_ref,
+                         wt.traverse_pairs_plain,
                          collect_super=col.collect_super_pairs_ref, **kw)
     for f in ("t", "u", "v", "prim_pos", "prim_id"):
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
@@ -447,7 +522,7 @@ def test_ablation_variants_on_chain_table(depth):
         pytest.skip("needs a CUDA device")
     from bvh_tpu_torch.tools import ablate_kernel as ak
 
-    table = torch.from_numpy(ak.make_chain_table(depth, 128)).cuda()
+    table = ak.chain_cols(depth, 128, "cuda")
     tid, rays = ak.chain_pairs(1024, "cuda")
     before = kernels.WIDE_TREELET_ABLATE.launches
     ak.check_chain(table, tid, rays, depth)
@@ -461,13 +536,9 @@ def test_ablation_variant_equals_ablated_plain(scene, variant):
     from bvh_tpu_torch.tools import ablate_kernel as ak
 
     tl, rays, _ = scene
-    portals = wt.collect_and_sort(tl, wt.pack_rays(rays), robust=False,
-                                  top_stack=tl.top_depth + 1, max_portals=64)
-    kk, rr = torch.nonzero(portals.tid >= 0, as_tuple=True)
-    tid = portals.tid[kk, rr].to(torch.int32)
-    prays = wt.pack_rays(rays)[:, portals.sel[rr]].contiguous()
+    tid, prays = _round_pairs(tl, rays)
     sd = 7 * tl.wide_depth + 8
-    got = ak.traverse_pairs_ablate(tl.table, tid, prays, variant=variant,
+    got = ak.traverse_pairs_ablate(tl.table_cols, tid, prays, variant=variant,
                                    stack_depth=sd)
     want = wt.traverse_pairs_ref(tl.table, tid, prays, any_hit=False,
                                  robust=False, stack_depth=sd,

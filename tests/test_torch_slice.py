@@ -145,6 +145,6 @@ def test_dispatchers_refuse_other_devices():
         tcol.collect_portals(torch.empty((16, 128), device="meta"), meta, 16,
                              robust=False, stack_depth=4, max_portals=8)
     with pytest.raises(ValueError, match="unsupported device"):
-        twt.traverse_pairs(torch.empty((1, 64, 128), device="meta"),
+        twt.traverse_pairs(torch.empty((1, 128, 64), device="meta"),
                            torch.empty(4, dtype=torch.int32, device="meta"),
                            meta, any_hit=False, robust=False, stack_depth=8)

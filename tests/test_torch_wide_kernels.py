@@ -170,7 +170,7 @@ def test_traverse_pairs_matches_traverse_core(scene, pairs, any_hit, robust):
     sd = 7 * scene["ttl"].wide_depth + 8
     want = _traverse_core_by_treelet(scene["jtl"], tid, rays, any_hit,
                                      robust, sd)
-    out_f, out_i = twt.traverse_pairs(scene["ttl"].table, tid, rays,
+    out_f, out_i = twt.traverse_pairs(scene["ttl"].table_cols, tid, rays,
                                       any_hit=any_hit, robust=robust,
                                       stack_depth=sd)
     t, u, v = out_f.numpy()
