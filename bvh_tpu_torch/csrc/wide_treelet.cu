@@ -4,7 +4,7 @@
 // (bvh_tpu/traverse/wide_treelet.py:741), launched per grid block by
 // `_wide_kernel_dma` (:1042) from `_phase_b` (:1096). For each
 // (ray, treelet) pair it walks the treelet's 8-wide BVH. It reads the
-// column-contiguous copy of the treelet tables, cols[T, P, 64] f32
+// treelet tables in the column layout, cols[T, P, 64] f32
 // (`WideTreelets.table_cols`, the transpose of the reference's
 // table[T, 64, P]), so that one column is 256 contiguous bytes:
 //   node column: rows 0-47 the 8 children's bounds (lo/hi per axis),
@@ -66,6 +66,8 @@
 // a sticky flag. Unlike the reference, which encodes hwm + 1000*ovf in
 // one row (ROADMAP C1), the overflow flag and the high-water mark are
 // separate outputs.
+
+#include <atomic>
 
 #include "slab.cuh"
 
@@ -347,21 +349,26 @@ template <bool kAnyHit, bool kRobust, int kAblate = 0>
 int launch(const float* cols, int P, const int* tid, const float* rays, int L,
            int stack_depth, float* out_f, int* out_i, int* next,
            cudaStream_t stream) {
-    // enough warps to fill the card, each taking pairs until none is left
-    static int grid = 0;
+    // enough warps to fill the current card, each taking pairs until none
+    // is left; the grid is worked out once per device and kept
+    constexpr int kMaxDevices = 64;
+    static std::atomic<int> grids[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int grid = dev < kMaxDevices ? grids[dev].load(std::memory_order_relaxed) : 0;
     if (grid == 0) {
-        int dev = 0, sms = 0, per_sm = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &per_sm, wide_treelet_kernel<kAnyHit, kRobust, kAblate>, kBlock, 0);
         if (err != cudaSuccess) return static_cast<int>(err);
         grid = sms * per_sm;
+        if (dev < kMaxDevices) grids[dev].store(grid, std::memory_order_relaxed);
     }
     const int blocks = (L + kBlock - 1) / kBlock;
-    cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+    err = cudaMemsetAsync(next, 0, sizeof(int), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     wide_treelet_kernel<kAnyHit, kRobust, kAblate>
         <<<blocks < grid ? blocks : grid, kBlock, 0, stream>>>(

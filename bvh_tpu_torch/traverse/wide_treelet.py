@@ -71,16 +71,16 @@ class WideTreelets(NamedTuple):
                              (phase-A format); leaves are portal words
                              (tid << 4 | 1); tid >= T names a super.
     top_root:   int          top root word.
-    table:      [T, 64, P]   per-treelet tables: columns [0, Wn) are
-                             wide nodes (rows 0-47 child bounds, 48-55
-                             child words as f32), columns [Wn, Wn+Q)
-                             quad leaves (rows q*13..q*13+11 triangle
-                             p0|e1|e2|n, q*13+12 global prim position,
-                             -1 padding).
-    table_cols: [T, P, 64]   `table` transposed and contiguous, made once
-                             per scene on the device: one column's 64
-                             floats in 256 contiguous bytes, the layout
-                             kernel B1 reads.
+    table_cols: [T, P, 64]   per-treelet tables, one column's 64 floats
+                             in 256 contiguous bytes (the layout kernel
+                             B1 reads): columns [0, Wn) are wide nodes
+                             (rows 0-47 child bounds, 48-55 child words
+                             as f32), columns [Wn, Wn+Q) quad leaves
+                             (rows q*13..q*13+11 triangle p0|e1|e2|n,
+                             q*13+12 global prim position, -1 padding).
+    table:      [T, 64, P]   (property) the same tables as the
+                             reference's row layout: a transposed view
+                             of `table_cols`, no second copy.
     n_prims:    int          total primitive positions.
     n_wide:     np.ndarray   [T] wide-node column count per treelet.
     top_depth:  int          top-region depth + 1 (phase-A stack bound).
@@ -92,7 +92,6 @@ class WideTreelets(NamedTuple):
 
     top_node_t: torch.Tensor
     top_root: int
-    table: torch.Tensor
     table_cols: torch.Tensor
     n_prims: int
     n_wide: np.ndarray
@@ -100,6 +99,10 @@ class WideTreelets(NamedTuple):
     wide_depth: int
     sup_table: torch.Tensor
     sup_depth: int
+
+    @property
+    def table(self) -> torch.Tensor:
+        return self.table_cols.transpose(1, 2)
 
 
 def column_tables(table: torch.Tensor) -> torch.Tensor:
@@ -111,14 +114,13 @@ def column_tables(table: torch.Tensor) -> torch.Tensor:
 def wide_treelets_from_numpy(tl, device) -> WideTreelets:
     """Carry a treelet scene whose fields convert with np.asarray (for
     example a `bvh_tpu` WideTreelets) across onto `device`, with the
-    column copy of its tables made there."""
+    tables put in the column layout there."""
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
-    table = t(tl.table)
     return WideTreelets(
         top_node_t=t(tl.top_node_t), top_root=int(tl.top_root),
-        table=table, table_cols=column_tables(table), n_prims=int(tl.n_prims),
+        table_cols=column_tables(t(tl.table)), n_prims=int(tl.n_prims),
         n_wide=np.asarray(tl.n_wide, np.int64),
         top_depth=int(tl.top_depth), wide_depth=int(tl.wide_depth),
         sup_table=t(tl.sup_table), sup_depth=int(tl.sup_depth))
@@ -535,12 +537,10 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
         if in_region[lev].any():
             top_depth = li + 2
 
-    table_t = torch.as_tensor(table, device=device)
     return WideTreelets(
         top_node_t=torch.as_tensor(top_node_t, device=device),
         top_root=top_root,
-        table=table_t,
-        table_cols=column_tables(table_t),
+        table_cols=column_tables(torch.as_tensor(table, device=device)),
         n_prims=len(prim_ids),
         n_wide=np.asarray(n_wide[:T], np.int64),
         top_depth=top_depth,
@@ -713,7 +713,7 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
 
 def traverse_pairs_plain(table_cols, tid, rays, *, any_hit: bool,
                          robust: bool, stack_depth: int, ablate: int = 0):
-    """`traverse_pairs_ref` on the column copy [T, P, 64] of the tables,
+    """`traverse_pairs_ref` on the column tables [T, P, 64],
     on any device: the plain version in the layout that `traverse_pairs`
     and the render's `traverse` argument take."""
     return traverse_pairs_ref(table_cols.transpose(1, 2), tid, rays,

@@ -157,7 +157,8 @@ PEAK_F32_PER_S = 67e12
 OPS_BOX, OPS_TRI, OPS_WIDE_STEP, OPS_PORTAL = 18, 40, 144, 18
 # Kernel B3, counted over the open nodes of every level the plain version
 # runs: a lane's binning (3 axes of a multiply, an add and two clamps, and
-# 18 min/max) 30, its partition compare 1; a node's SAH sweep, 3 axes x 14
+# 18 min/max) 30, its partition compare 1 (only in a node that splits);
+# a node's SAH sweep, 3 axes x 14
 # prefixes x (6 min/max, a half-area of 3 differences, 2 sums and 2
 # products, and a cost of a product and a sum) 630.
 OPS_BIN_LANE, OPS_PART_LANE, OPS_SWEEP_NODE = 30, 1, 630
@@ -242,8 +243,9 @@ def nbytes(*ts) -> int:
 def b3_work(nbi, cnt, NCAP: int, min_leaf: int) -> dict:
     """From B3's node table: the levels of the deepest group (the
     iterations of the level-synchronous plain version), the open nodes
-    (more than min_leaf lanes: binned and swept) and their lanes, over
-    all groups, and the float operations they take (`OPS_*` above)."""
+    (more than min_leaf lanes: binned and swept) and their lanes, the
+    lanes of the nodes that split (partitioned), over all groups, and the
+    float operations they take (`OPS_*` above)."""
     G = cnt.numel()
     rows = nbi.view(8, G, NCAP).long()
     size, child = rows[1] - rows[0], rows[2]
@@ -262,9 +264,47 @@ def b3_work(nbi, cnt, NCAP: int, min_leaf: int) -> dict:
         level[g, child[g, s_] + 1] = depth + 1
         depth += 1
     nodes, lanes = int(opn.sum()), int(size[opn].sum())
+    split_lanes = int(size[live & (child >= 0)].sum())
     return dict(levels=depth + 1, open_nodes=nodes, lanes=lanes,
-                ops=lanes * (OPS_BIN_LANE + OPS_PART_LANE)
+                split_lanes=split_lanes,
+                ops=lanes * OPS_BIN_LANE + split_lanes * OPS_PART_LANE
                 + nodes * OPS_SWEEP_NODE)
+
+
+class ColumnMarks:
+    """Stands in for the [T, 64, P] table given to B1's plain version
+    (`traverse_pairs_ref`), which reads only `shape` and
+    `reshape(-1)[offsets]` with [64, L] offsets, row 0's first: marks the
+    (treelet, column) that row 0's offsets name at each step."""
+
+    def __init__(self, table):
+        self.shape, self.flat = table.shape, table.reshape(-1)
+        self.seen = torch.zeros(self.flat.numel(), dtype=torch.bool,
+                                device=table.device)
+
+    def reshape(self, *_):
+        return self
+
+    def __getitem__(self, off):
+        self.seen[off[0]] = True
+        return self.flat[off]
+
+
+def visited_bytes(table_cols, tid, rays, out, **kw) -> int:
+    """The bytes of the table columns that B1's traversal of these pairs
+    visits, each counted once: the plain version, run on the pairs that
+    are active at their first step (a finished pair re-reads a column it
+    visited), marks them. `out` is B1's output on all the pairs, which
+    the marked run must reproduce on its pairs."""
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    act = (tid >= 0) & (rays[6] <= rays[7])
+    marks = ColumnMarks(table_cols.transpose(1, 2))
+    got = wt.traverse_pairs_ref(marks, tid[act], rays[:, act].contiguous(),
+                                **kw)
+    if not same(got, tuple(o[:, act] for o in out)):
+        raise AssertionError("the column-marking run diverged from B1")
+    return int(marks.seen.sum()) * wt.ROWS * table_cols.element_size()
 
 
 def tree_checks(bvh, n: int) -> dict:
@@ -1091,7 +1131,9 @@ def tool_kernels_phase() -> dict:
     out["t1"] = dict(
         ms=r1["no quad MT"]["ms_hi"], plain_ms=r1["plain_ms"],
         bound=bound(nbytes(r1["tid"], r1["rays"], *full)
-                    + min(nbytes(r1["table"]), 256 * asteps),
+                    + visited_bytes(r1["table"], r1["tid"], r1["rays"], full,
+                                    any_hit=False, robust=False,
+                                    stack_depth=24),
                     OPS_WIDE_STEP * asteps),
         us_per_step={k: v["us"] for k, v in r1.items()
                      if isinstance(v, dict) and "us" in v})
@@ -1182,7 +1224,7 @@ def run() -> dict:
     b3w = b3_work(b3_out[1], b3_out[3], plan.NCAP, cfg.min_leaf_size)
     log(f"# B3 work at G={plan.G}: {b3w['levels']} levels, "
         f"{b3w['open_nodes']} open nodes, {b3w['lanes']} lanes binned, "
-        f"{b3w['ops']} float operations")
+        f"{b3w['split_lanes']} partitioned, {b3w['ops']} float operations")
 
     # ---- 5. the build path, through B3 and through its plain version --
     kernels.reset_launch_counts()
@@ -1470,16 +1512,22 @@ def run() -> dict:
         f"{native_s * 1e3:.3f} ms")
 
     # the bounds of B1-B3 at the shapes timed above, from the kernels'
-    # own counts: B2's recorded portals, B1's active steps per pair
+    # own counts: B2's recorded portals; B1's active steps per pair and
+    # the table columns its pairs visit; B3's 3*dim float rows of the
+    # groups' lanes (not the staging's padding rows and lanes)
     pcnt = int(k_out[2][0].sum())
     bounds = {"b2": bound(nbytes(packed, *k_out)
                           + min(nbytes(tl.top_node_t), 56 * pcnt // 2),
                           OPS_PORTAL * pcnt)}
     asteps = int(b1_ref[1][1].sum())
-    bounds["b1"] = bound(nbytes(ptid, prays, *b1_ref)
-                         + min(nbytes(tl.table), 256 * asteps),
+    b1_cols = visited_bytes(tl.table_cols, ptid, prays, b1_ref, **b1_kw)
+    bounds["b1"] = bound(nbytes(ptid, prays, *b1_ref) + b1_cols,
                          OPS_WIDE_STEP * asteps)
-    bounds["b3"] = bound(nbytes(pf, plan.counts, *b3_out), b3w["ops"])
+    b3_in = 3 * plan.dim * int(plan.counts.sum()) * pf.element_size()
+    bounds["b3"] = bound(b3_in + nbytes(plan.counts, *b3_out), b3w["ops"])
+    log(f"# B1 round 1 visits {b1_cols // 256} of {tl.table_cols.shape[0]} x "
+        f"{tl.table_cols.shape[1]} table columns; B3 reads {b3_in} bytes of "
+        f"{nbytes(pf)} staged")
     for k, (ms, by) in bounds.items():
         log(f"# bound of {k} at the timed shapes: {ms:.4f} ms ({by})")
 

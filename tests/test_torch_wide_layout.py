@@ -1,11 +1,11 @@
-"""The column copy of the treelet tables that kernel B1 reads
-(`WideTreelets.table_cols`, [T, P, 64]), on the fixture of
-tests/test_torch_wide_treelet.py (sponza_class(3000, 3), MEDIUM tree,
-32x32 primary rays, max_prims=256):
+"""The column layout of the treelet tables that kernel B1 reads
+(`WideTreelets.table_cols`, [T, P, 64], the one stored copy), on the
+fixture of tests/test_torch_wide_treelet.py (sponza_class(3000, 3),
+MEDIUM tree, 32x32 primary rays, max_prims=256):
 
-- the copy is the [T, 64, P] table transposed, bit for bit, in one-level
-  and two-level scenes, and `wide_treelets_from_numpy` of bvh_tpu's
-  scene makes the same copy;
+- `table` is a view of it, and it is the [T, 64, P] table transposed,
+  bit for bit, in one-level and two-level scenes, and
+  `wide_treelets_from_numpy` of bvh_tpu's scene makes the same tables;
 - `check_pair_inputs` takes the column layout and refuses the row
   layout, a strided view and a misaligned start;
 - the traversal's plain version on the column copy equals it on the
@@ -33,10 +33,13 @@ def scenes(scene):
 
 @pytest.mark.parametrize("cut", ["one_level", "two_level"])
 def test_table_cols_is_the_transpose(scenes, cut):
+    """One stored copy: `table` is a view of `table_cols`, and the column
+    tables are the row tables transposed, bit for bit."""
     tl = scenes[cut]
     T, rows, P = tl.table.shape
     assert rows == twt.ROWS and tl.table_cols.shape == (T, P, rows)
     assert tl.table_cols.is_contiguous()
+    assert tl.table.data_ptr() == tl.table_cols.data_ptr()
     want = tl.table.transpose(1, 2).contiguous().numpy()
     assert tl.table_cols.numpy().tobytes() == want.tobytes()
 
@@ -55,8 +58,8 @@ def test_check_pair_inputs_takes_only_the_column_layout(scene, pairs):
     twt.check_pair_inputs("t", tl.table_cols, tid, rays, 8)
     misaligned = torch.zeros(tl.table_cols.numel() + 1)[1:].view(
         tl.table_cols.shape)
-    for bad in (tl.table, tl.table_cols.transpose(1, 2),
-                tl.table.transpose(1, 2), misaligned):
+    for bad in (tl.table, tl.table.contiguous(), tl.table_cols[:, ::2],
+                misaligned):
         with pytest.raises(ValueError, match="column layout"):
             twt.check_pair_inputs("t", bad, tid, rays, 8)
 

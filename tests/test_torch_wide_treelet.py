@@ -141,7 +141,6 @@ def test_wide_treelets_from_numpy(scene):
     tl = twt.wide_treelets_from_numpy(scene["jtl"], "cpu")
     for f in ("top_node_t", "table", "sup_table"):
         assert torch.equal(getattr(tl, f), getattr(scene["ttl"], f)), f
-    assert tl._replace(top_node_t=None, table=None, table_cols=None,
-                       sup_table=None, n_wide=None) == scene["ttl"]._replace(
-        top_node_t=None, table=None, table_cols=None, sup_table=None,
-        n_wide=None)
+    assert tl._replace(top_node_t=None, table_cols=None, sup_table=None,
+                       n_wide=None) == scene["ttl"]._replace(
+        top_node_t=None, table_cols=None, sup_table=None, n_wide=None)
