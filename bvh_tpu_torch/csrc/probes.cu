@@ -22,23 +22,38 @@
 // sum over i < iters of table[r, (idx[b] + i) mod P], in order of i, the
 // table bf16 (summed in f32, one rounding an add) or int8 (summed in
 // int32). The reference fetched with a one-hot product on the MXU; here
-// one thread per (row, lane), lanes fastest, reads its element with a
-// plain load.
+// each fetch is a plain load of a column, from a column-major copy of
+// the table, cols[P, rows_pad] (`column_copy`, made once outside the
+// timed call), its rows padded to the run.
 //
 // What bounds them on the card: T5 is a dependent chain (each step's
 // column depends on the last step's pop), so at the tool's widths it is
 // latency-bound: one thread per lane, and the 32 KB (C = 128) or 128 KB
 // (C = 512) table stays in L1/L2. T6 reads a 400 KB (bf16) or 276 KB
-// (int8) table that stays in L2; each lane's loads walk one row, so the
-// loads of a warp hit 32 different columns of one row: neighbouring
-// lanes read neighbouring addresses only where their idx are close.
-//
+// (int8) table that stays in L2. At the tool's B = 512 lanes and 200
+// fetches a lane it is neither bytes nor operations but the instructions
+// of a few thousand threads: with one thread per 16 bytes of a column
+// there were under 3 warps an SM, about one a scheduler, and each waited
+// out its own instructions' latency. The design: a thread owns an
+// 8-byte run of one lane's column (4 bf16 or 8 int8) and fetches it
+// with one vector load a fetch; neighbouring threads own neighbouring
+// runs of the same lane, so a warp's load is a contiguous stretch of
+// one column. The loads of kFetchDepth fetches
+// are written before their adds (the compiler keeps about 6 in flight),
+// and each row keeps its own accumulator, so every output still sums in
+// order of i. The output goes out lane-major, [B, rows_pad], one
+// contiguous store a thread. (On the [rows, P] table itself, one thread
+// per (row, lane), a warp's 32 lanes read 32 unrelated columns of one
+// row, up to 32 sectors a load.) Tried on the card and dropped: 16-byte
+// runs (fewer warps: slower), 4-byte runs (no faster), asynchronous
+// copies into shared memory (cp.async, 16-64 in flight: no faster, so
+// the loads in flight were not the limit), 64-thread blocks.
+
 // Exactness: every product and sum is rounded on its own (_rn
 // intrinsics, -fmad=false); min/max propagate NaN as jnp.minimum and
 // jnp.maximum; the float-to-int conversion truncates toward zero as
 // astype(int32) does; `%` is made a floor modulo, as jnp's.
 
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "slab.cuh"
@@ -122,28 +137,72 @@ void launch_probe(const float* table, int C, const float* rays, int B,
             table, C, rays, B, stack_depth, iters, out);
 }
 
-__device__ __forceinline__ float fetch_add(float acc, __nv_bfloat16 v) {
-    return __fadd_rn(acc, __bfloat162float(v));
+// Threads a block of the column fetch, and the fetches whose loads a
+// thread issues before their adds. A thread's run of a column is 8
+// bytes: 4 bf16 or 8 int8.
+constexpr int kFetchBlock = 32;
+constexpr int kFetchDepth = 32;
+
+// Add one 8-byte run to its accumulators: 4 bf16 (exactly widened to
+// f32, then one rounding an add) or 8 int8.
+__device__ __forceinline__ void add_run(float (&acc)[4], uint2 v) {
+    const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        acc[2 * k] = __fadd_rn(acc[2 * k], __uint_as_float(w[k] << 16));
+        acc[2 * k + 1] =
+            __fadd_rn(acc[2 * k + 1], __uint_as_float(w[k] & 0xffff0000u));
+    }
 }
-__device__ __forceinline__ int fetch_add(int acc, int8_t v) {
-    return acc + static_cast<int>(v);
+__device__ __forceinline__ void add_run(int (&acc)[8], uint2 v) {
+    const unsigned w[2] = {v.x, v.y};
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            acc[4 * k + j] += static_cast<int>(w[k] << (24 - 8 * j)) >> 24;
 }
 
-template <typename T, typename Acc>
-__global__ void column_fetch_kernel(const T* __restrict__ table, int P,
-                                    const int* __restrict__ idx, int B,
-                                    int iters, Acc* __restrict__ out) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int r = blockIdx.y;
-    const T* row = table + static_cast<size_t>(r) * P;
-    int c = idx[b];
-    Acc acc = 0;
-    for (int i = 0; i < iters; ++i) {
-        acc = fetch_add(acc, row[c]);
+__device__ __forceinline__ unsigned word(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ unsigned word(int x) { return static_cast<unsigned>(x); }
+
+// cols [P, G runs of 8 bytes]; out [B, G * Run] (Run = 8 bytes' rows).
+// Thread t owns run g = t mod G of lane b = t / G.
+template <typename Acc, int Run>
+__global__ void __launch_bounds__(kFetchBlock)
+column_fetch_kernel(const uint2* __restrict__ cols, int G, int P,
+                    const int* __restrict__ idx, int B, int iters,
+                    Acc* __restrict__ out) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= B * G) return;
+    const int b = t / G;
+    const uint2* run = cols + (t - b * G);  // column c's run: run[c * G]
+    int c = idx[b] % P;                      // a floor modulo, as the
+    if (c < 0) c += P;                       // plain version's
+    Acc acc[Run];
+#pragma unroll
+    for (int k = 0; k < Run; ++k) acc[k] = 0;
+    int i = 0;
+    for (; i + kFetchDepth <= iters; i += kFetchDepth) {
+        uint2 v[kFetchDepth];
+#pragma unroll
+        for (int u = 0; u < kFetchDepth; ++u) {
+            v[u] = __ldg(run + static_cast<size_t>(c) * G);
+            c = c + 1 == P ? 0 : c + 1;
+        }
+#pragma unroll
+        for (int u = 0; u < kFetchDepth; ++u) add_run(acc, v[u]);
+    }
+    for (; i < iters; ++i) {
+        add_run(acc, __ldg(run + static_cast<size_t>(c) * G));
         c = c + 1 == P ? 0 : c + 1;
     }
-    out[static_cast<size_t>(r) * B + b] = acc;
+    Acc* o = out + static_cast<size_t>(t) * Run;
+#pragma unroll
+    for (int k = 0; k < Run; k += 4)
+        *reinterpret_cast<uint4*>(o + k) =
+            make_uint4(word(acc[k]), word(acc[k + 1]), word(acc[k + 2]),
+                       word(acc[k + 3]));
 }
 
 }  // namespace
@@ -175,24 +234,26 @@ extern "C" int bvh_wide_step_probe(const float* table, int C,
     return static_cast<int>(cudaGetLastError());
 }
 
-// table [rows, P], bf16 (int8 = 0) or int8 (int8 = 1); idx [B] i32 in
-// [0, P); out [rows, B], f32 for bf16 and i32 for int8. Returns
-// cudaGetLastError() after the launch.
-extern "C" int bvh_column_fetch(const void* table, int int8, int rows, int P,
+// cols [P, width] (the table's columns, rows padded to 8 bytes: width
+// a multiple of 4 bf16 or 8 int8), bf16 (int8 = 0) or int8 (int8 = 1),
+// 8-byte aligned; idx [B] i32 (taken mod P); out [B, width], f32 for
+// bf16 and i32 for int8, 16-byte aligned. Returns cudaGetLastError()
+// after the launch.
+extern "C" int bvh_column_fetch(const void* cols, int int8, int width, int P,
                                 const int* idx, int B, int iters, void* out,
                                 void* stream) {
-    if (B > 0 && rows > 0) {
-        const int block = 128;
-        const dim3 grid((B + block - 1) / block, rows);
+    const int G = width / (int8 ? 8 : 4);  // 8-byte runs a column
+    const long long threads = static_cast<long long>(B) * G;
+    if (threads > 0 && P > 0) {
+        const int grid = static_cast<int>((threads + kFetchBlock - 1) / kFetchBlock);
         auto s = static_cast<cudaStream_t>(stream);
+        const uint2* c = static_cast<const uint2*>(cols);
         if (int8)
-            column_fetch_kernel<int8_t, int><<<grid, block, 0, s>>>(
-                static_cast<const int8_t*>(table), P, idx, B, iters,
-                static_cast<int*>(out));
+            column_fetch_kernel<int, 8><<<grid, kFetchBlock, 0, s>>>(
+                c, G, P, idx, B, iters, static_cast<int*>(out));
         else
-            column_fetch_kernel<__nv_bfloat16, float><<<grid, block, 0, s>>>(
-                static_cast<const __nv_bfloat16*>(table), P, idx, B, iters,
-                static_cast<float*>(out));
+            column_fetch_kernel<float, 4><<<grid, kFetchBlock, 0, s>>>(
+                c, G, P, idx, B, iters, static_cast<float*>(out));
     }
     return static_cast<int>(cudaGetLastError());
 }

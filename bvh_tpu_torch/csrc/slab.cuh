@@ -1,7 +1,8 @@
 // Ray-box slab arithmetic shared by the portal-collect, traversal and
 // probe kernels, rounded exactly as the reference kernels round it
 // (bvh_tpu/traverse/collect.py:44-56, wide_treelet.py:757-769), and the
-// 8-way sorting network of the wide-node step.
+// 8-way sorting network of the wide-node step; and the grid of the
+// persistent kernels, whose warps take work until none is left.
 //
 // Every product and sum goes through the _rn intrinsics, which nvcc
 // never contracts into an FMA, so the kernels agree with their plain
@@ -12,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace bvh {
 
@@ -107,6 +110,29 @@ __device__ __forceinline__ void sort8(float* k, int* w) {
     cmp_swap(k, w, 2, 6); cmp_swap(k, w, 3, 7);
     cmp_swap(k, w, 2, 4); cmp_swap(k, w, 3, 5);
     cmp_swap(k, w, 1, 2); cmp_swap(k, w, 3, 4); cmp_swap(k, w, 5, 6);
+}
+
+// The CTAs of `block` threads of `Kernel` that the current card holds
+// at once (its SMs times the occupancy calculator's CTAs an SM), the
+// grid of a persistent kernel; worked out once per device and kept.
+template <auto Kernel>
+cudaError_t persistent_grid(int block, int& grid) {
+    constexpr int kMaxDevices = 64;
+    static std::atomic<int> grids[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    grid = dev < kMaxDevices ? grids[dev].load(std::memory_order_relaxed) : 0;
+    if (grid != 0) return cudaSuccess;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                            block, 0);
+    if (err != cudaSuccess) return err;
+    grid = sms * per_sm;
+    if (dev < kMaxDevices) grids[dev].store(grid, std::memory_order_relaxed);
+    return cudaSuccess;
 }
 
 }  // namespace bvh

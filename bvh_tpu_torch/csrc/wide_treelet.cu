@@ -67,8 +67,6 @@
 // one row (ROADMAP C1), the overflow flag and the high-water mark are
 // separate outputs.
 
-#include <atomic>
-
 #include "slab.cuh"
 
 namespace {
@@ -350,23 +348,11 @@ int launch(const float* cols, int P, const int* tid, const float* rays, int L,
            int stack_depth, float* out_f, int* out_i, int* next,
            cudaStream_t stream) {
     // enough warps to fill the current card, each taking pairs until none
-    // is left; the grid is worked out once per device and kept
-    constexpr int kMaxDevices = 64;
-    static std::atomic<int> grids[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    // is left
+    int grid = 0;
+    cudaError_t err = bvh::persistent_grid<
+        wide_treelet_kernel<kAnyHit, kRobust, kAblate>>(kBlock, grid);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int grid = dev < kMaxDevices ? grids[dev].load(std::memory_order_relaxed) : 0;
-    if (grid == 0) {
-        int sms = 0, per_sm = 0;
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, wide_treelet_kernel<kAnyHit, kRobust, kAblate>, kBlock, 0);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        grid = sms * per_sm;
-        if (dev < kMaxDevices) grids[dev].store(grid, std::memory_order_relaxed);
-    }
     const int blocks = (L + kBlock - 1) / kBlock;
     err = cudaMemsetAsync(next, 0, sizeof(int), stream);
     if (err != cudaSuccess) return static_cast<int>(err);

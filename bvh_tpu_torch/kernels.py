@@ -25,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -120,10 +121,11 @@ _SIGNATURES = {
     # stack_depth, out_f, out_i, stream
     "bvh_binary_traverse_tris": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                  _VP, _VP, _VP],
-    # dim, node_b, node_w, sph, rays, R, root_word, any_hit, robust,
-    # stack_depth, out_f, out_i, stream
-    "bvh_binary_traverse_spheres": [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                                    _I, _VP, _VP, _VP],
+    # dim, pairs, spheres, rays, R, root_word, any_hit, robust,
+    # stack_depth, out_f, out_i, next (work counter), steps (or null),
+    # stream
+    "bvh_sphere_traverse": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP,
+                            _VP, _VP, _VP],
     # table_cols, T, P, tid, rays, L, any_hit, robust, stack_depth,
     # out_f, out_i, next (work counter), stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
@@ -134,7 +136,7 @@ _SIGNATURES = {
                                 _VP, _VP, _VP, _VP],
     # table, C, rays, B, sort8, chains, stack_depth, iters, out, stream
     "bvh_wide_step_probe": [_VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP],
-    # table, int8, rows, P, idx, B, iters, out, stream
+    # cols, int8, width (rows_pad), P, idx, B, iters, out, stream
     "bvh_column_fetch": [_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP],
     # pf, sizes, G, P, NCAP, min_leaf, max_leaf, log_cluster, cost_ratio,
     # nbf, nbi, src, cnt, stream
@@ -143,6 +145,8 @@ _SIGNATURES = {
     "bvh_group_build_max_p": [ctypes.POINTER(_I)],
     # P, out
     "bvh_group_build_occupancy": [_I, ctypes.POINTER(_I)],
+    # dim, out
+    "bvh_sphere_traverse_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 
@@ -189,6 +193,43 @@ def group_build_occupancy(P: int) -> int:
     return out.value
 
 
+def sphere_traverse_occupancy(dim: int) -> int:
+    """The warps of kernel B6 (closest hit, fast slab) that one SM of
+    the current device holds at once at `dim` (CUDA's occupancy
+    calculator on its registers, threads and stack)."""
+    out = _I(0)
+    err = library().bvh_sphere_traverse_occupancy(dim, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"bvh_sphere_traverse_occupancy: CUDA error {err}")
+    return out.value
+
+
+def ptxas_figures(fragment: str) -> dict[str, dict[str, int]]:
+    """From the compiler's report: registers, stack frame and spill
+    bytes of every entry function whose mangled name holds `fragment`."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in build_log().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1) if fragment in m.group(1) else None
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(frame=int(m.group(1)), spill_stores=int(
+                m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def build_log() -> str:
     """The compiler's report for the kernels' library (ptxas
     registers, shared memory and spills per kernel)."""
@@ -221,7 +262,7 @@ WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
 GROUP_BUILD = Kernel("group_build", "bvh_group_build")
 COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
 BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
-SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_binary_traverse_spheres")
+SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_sphere_traverse")
 # the profiling tools' kernels (bvh_tpu_torch/tools/)
 WIDE_TREELET_ABLATE = Kernel("traverse_pairs_ablate", "bvh_wide_treelet_ablate")
 WIDE_STEP_PROBE = Kernel("wide_step_probe", "bvh_wide_step_probe")

@@ -1,7 +1,10 @@
 """Timing, value guards and printing shared by the profiling tools.
 
 On a CUDA device a time is taken with CUDA events, after a warm-up; on
-the CPU with `time.perf_counter`. Every timed loop hands its last
+the CPU with `time.perf_counter`. A `queued` time gives the stream a
+head start (a spin of about a millisecond) before each call, so the
+call's work waits in the queue and the events time the device alone,
+not the host's launch overhead. Every timed loop hands its last
 output to `guard`, which compares it by value with the verified output:
 a loop that computed something else raises instead of reporting a time.
 """
@@ -12,6 +15,10 @@ import statistics
 import time
 
 import torch
+
+# the stream's head start before a queued call, in clock cycles (about
+# 1.1 ms at the H100's 1.755 GHz boost clock)
+HEAD_START_CYCLES = 2_000_000
 
 
 def log(msg: str) -> None:
@@ -53,15 +60,19 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def time_calls(fn, device, n: int = 5) -> tuple[float, object]:
+def time_calls(fn, device, n: int = 5,
+               queued: bool = False) -> tuple[float, object]:
     """Median ms of n calls of `fn` after one warm-up, each call timed on
-    its own (CUDA events on a CUDA device, perf_counter on the CPU).
-    Returns (median ms, the last call's output)."""
+    its own (CUDA events on a CUDA device, `queued` behind a head start
+    when asked; perf_counter on the CPU). Returns (median ms, the last
+    call's output)."""
     out = fn()
     sync(device)
     ts = []
     for _ in range(n):
         if torch.device(device).type == "cuda":
+            if queued:
+                torch.cuda._sleep(HEAD_START_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -76,9 +87,10 @@ def time_calls(fn, device, n: int = 5) -> tuple[float, object]:
     return statistics.median(ts), out
 
 
-def timed(name: str, fn, ref, device, n: int = 5) -> float:
+def timed(name: str, fn, ref, device, n: int = 5,
+          queued: bool = False) -> float:
     """`time_calls`, with the last output guarded against `ref`."""
-    ms, out = time_calls(fn, device, n)
+    ms, out = time_calls(fn, device, n, queued)
     guard(name, out, ref)
     return ms
 

@@ -2,17 +2,21 @@
 plain version, dispatcher and the reference's public names.
 
 The CUDA counterpart of `bvh_tpu.traverse.pallas_sphere`: the binary
-walk of kernel B5 (csrc/binary_traverse.cu, templated on the dimension
-and the leaf test) with the quadratic sphere test of `geom/sphere.py` at
-the leaves, for float32 trees of dim 2, 3 and 4. A hit reports
+walk (csrc/binary_traverse.cu, `sphere_traverse_kernel`, one step a
+lane an iteration, in 2D and 3D in persistent warps that refill idle
+lanes) with the quadratic sphere test of `geom/sphere.py` at the
+leaves, for float32 trees of dim 2, 3 and 4. A hit reports
 t = u = the entry distance t0 (clamped to tmin) and v = the exit
 distance t1, as `wavefront.traverse` with `make_sphere_leaf_fn` does.
 Float64 trees and other dims take that wavefront, as in `bvh_tpu`.
 
-Tables: node pairs as rows, pair k = children (2k+1, 2k+2): `node_b`
-[P, 4*dim] f32, `node_w` [P, 2] int32 (index words as integers, where
-the TPU carried f32), and the spheres by prim position, `sph`
-[n, dim+1] f32 (centre, radius).
+Tables, one aligned row a step: node pairs as rows, pair k
+= children (2k+1, 2k+2), `pairs` [P, 4*(dim+1)] f32 = left box, right
+box, the two children's index words as their int32 bits (integers,
+where the TPU carried f32), zero padding to 16-byte rows; and the
+spheres by prim position, `spheres` [n, 4] (dim 2, 3) or [n, 8] (dim 4)
+f32 = centre, radius, zero padding. Kernel and plain version read the
+same rows.
 
 `sphere_traverse` runs the kernel for tensors on a CUDA device and
 `sphere_traverse_ref`, the plain PyTorch version (`wavefront.walk` over
@@ -43,14 +47,29 @@ DIMS = (2, 3, 4)
 
 
 class SphereTables(NamedTuple):
-    node_b: torch.Tensor  # [P, 4*dim] f32 child-pair boxes
-    node_w: torch.Tensor  # [P, 2] int32 child-pair index words
-    sph: torch.Tensor     # [n, dim+1] f32 spheres by prim position
+    pairs: torch.Tensor    # [P, 4*(dim+1)] f32 child-pair rows
+    spheres: torch.Tensor  # [n, SPHERE_WIDTH[dim]] f32 by prim position
     root_word: int
 
     @property
     def dim(self) -> int:
-        return self.sph.shape[1] - 1
+        return self.pairs.shape[1] // 4 - 1
+
+
+# floats a sphere row takes: centre and radius, padded to 16 bytes
+SPHERE_WIDTH = {2: 4, 3: 4, 4: 8}
+
+
+def pair_rows(node_b, node_w):
+    """One row a child pair: `pair_tables`' boxes node_b [P, 4*dim] and
+    words node_w [P, 2] int32 (their bits), zero-padded to 4*(dim+1)
+    floats."""
+    P, width = node_b.shape
+    rows = torch.zeros((P, width + 4), dtype=torch.int32,
+                       device=node_b.device)
+    rows[:, :width] = node_b.contiguous().view(torch.int32)
+    rows[:, width:width + 2] = node_w
+    return rows.view(torch.float32)
 
 
 def make_tables(bvh: Bvh, centers, radii,
@@ -67,7 +86,10 @@ def make_tables(bvh: Bvh, centers, radii,
     sph = sph.to(torch.float32)
     if not permuted:
         sph = sph[bvh.prim_ids.clamp(0, sph.shape[0] - 1)]
-    return SphereTables(node_b, node_w, sph.contiguous(), root_word)
+    spheres = torch.zeros((sph.shape[0], SPHERE_WIDTH[bvh.dim]),
+                          dtype=torch.float32, device=dev)
+    spheres[:, :bvh.dim + 1] = sph
+    return SphereTables(pair_rows(node_b, node_w), spheres, root_word)
 
 
 def sphere_traverse_ref(tables: SphereTables, rays, *, any_hit: bool,
@@ -80,16 +102,17 @@ def sphere_traverse_ref(tables: SphereTables, rays, *, any_hit: bool,
     Returns out_f [3, R] f32 (t, u, v; t = +inf on a miss) and out_i
     [4, R] int32 (position or -1, nstat, lstat, stack overflow)."""
     dim = tables.dim
-    node_b = tables.node_b
-    node_w = tables.node_w.to(torch.int64)
+    pairs = tables.pairs
+    words = pairs[:, 4 * dim:4 * dim + 2].view(torch.int32).to(torch.int64)
 
     def fetch(fid):
         k = fid >> 1
-        return (node_b[k, :2 * dim], node_b[k, 2 * dim:], node_w[k, 0],
-                node_w[k, 1])
+        row = pairs[k]
+        return (row[:, :2 * dim], row[:, 2 * dim:4 * dim], words[k, 0],
+                words[k, 1])
 
     def leaf_fn(pos, rays_now):
-        row = tables.sph[pos]
+        row = tables.spheres[pos]
         t0, t1, hit = Sphere(row[:, :dim], row[:, dim]).intersect(rays_now)
         return hit, t0, t0, t1
 
@@ -103,37 +126,51 @@ def sphere_traverse_ref(tables: SphereTables, rays, *, any_hit: bool,
 
 
 def sphere_traverse(tables: SphereTables, rays, *, any_hit: bool,
-                    robust: bool, stack_depth: int):
+                    robust: bool, stack_depth: int, steps=None):
     """Kernel B6 for CUDA tensors, the plain version for CPU tensors.
-    Same inputs and outputs as `sphere_traverse_ref`."""
-    if rays.device.type == "cpu":
+    Same inputs and outputs as `sphere_traverse_ref`. `steps`, a [2]
+    int64 tensor on the card (closest hit, fast slab only), receives the
+    kernel's SIMT counts: its lanes' steps and its warps' steps (an inner
+    step or a sphere test each), whose ratio over 32 is the launch's
+    SIMT efficiency; the plain version has none."""
+    if rays.device.type == "cpu" and steps is None:
         return sphere_traverse_ref(tables, rays, any_hit=any_hit,
                                    robust=robust, stack_depth=stack_depth)
     if rays.device.type != "cuda":
-        raise ValueError(f"sphere_traverse: unsupported device {rays.device}")
+        raise ValueError(f"sphere_traverse: kernel B6 runs on a CUDA device, "
+                         f"not {rays.device}")
     if not 1 <= stack_depth <= kernels.BINARY_STACK_MAX:
         raise ValueError(f"sphere_traverse: stack depth {stack_depth} "
                          f"exceeds the kernel's {kernels.BINARY_STACK_MAX}")
-    dim, R, P = tables.dim, rays.shape[1], tables.node_b.shape[0]
+    dim, R = tables.dim, rays.shape[1]
     if dim not in DIMS:
         raise ValueError(f"sphere_traverse: kernel B6 takes dims {DIMS}")
-    for name, t, shape, dtype in (
-            ("node_b", tables.node_b, (P, 4 * dim), torch.float32),
-            ("node_w", tables.node_w, (P, 2), torch.int32),
-            ("sph", tables.sph, (tables.sph.shape[0], dim + 1),
-             torch.float32),
-            ("rays", rays, (2 * dim + 2, R), torch.float32)):
+    checks = [("pairs", tables.pairs, (tables.pairs.shape[0], 4 * dim + 4),
+               torch.float32, 16),
+              ("spheres", tables.spheres,
+               (tables.spheres.shape[0], SPHERE_WIDTH[dim]), torch.float32,
+               16),
+              ("rays", rays, (2 * dim + 2, R), torch.float32, 4)]
+    if steps is not None:
+        checks.append(("steps", steps, (2,), torch.int64, 8))
+    for name, t, shape, dtype, align in checks:
         if (t.device != rays.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"sphere_traverse: {name} must be a contiguous "
-                             f"{list(shape)} {dtype} tensor on {rays.device}")
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % align):
+            raise ValueError(f"sphere_traverse: {name} must be a contiguous, "
+                             f"{align}-byte aligned {list(shape)} {dtype} "
+                             f"tensor on {rays.device}")
+    if steps is not None and (any_hit or robust):
+        raise ValueError("sphere_traverse: SIMT counts are taken for closest "
+                         "hit with the fast slab only")
     out_f = torch.empty((3, R), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, R), dtype=torch.int32, device=rays.device)
+    work = torch.empty(1, dtype=torch.int32, device=rays.device)
     kernels.SPHERE_TRAVERSE.launch(
-        dim, tables.node_b.data_ptr(), tables.node_w.data_ptr(),
-        tables.sph.data_ptr(), rays.data_ptr(), R, tables.root_word,
-        int(any_hit), int(robust), stack_depth, out_f.data_ptr(),
-        out_i.data_ptr())
+        dim, tables.pairs.data_ptr(), tables.spheres.data_ptr(),
+        rays.data_ptr(), R, tables.root_word, int(any_hit), int(robust),
+        stack_depth, out_f.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+        None if steps is None else steps.data_ptr())
     return out_f, out_i
 
 

@@ -79,7 +79,12 @@ exits non-zero):
    equals (a), built by `build_default(MEDIUM)` (`build_minitree` in 2D
    and 4D, kernel B3 in 3D; the tree's invariants), 1,048,576 rays
    through B6, every 16th equal to the plain version bit for bit; B6,
-   its plain version and the build timed with CUDA events;
+   its plain version and the build timed with CUDA events, B6 in
+   coherence order and unsorted; per dim B6's ns a step (its time over
+   inner steps plus leaves), its SIMT efficiency (its own lanes' steps
+   over 32 x its warps' steps, and one ray a lane from the counts in
+   launch order), its warps an SM and ptxas' registers, frame and
+   spills;
 15. float64: bench_dims' 1,024 float64 triangles (16,384 rays), then
    262,144 (edges scaled by (1024/262144)^(1/3), `build_default(MEDIUM)`
    = `build_minitree` in float64; 65,536 rays), through the wavefront on
@@ -92,10 +97,12 @@ exits non-zero):
    tree (host) and every 16th primary ray through `intersect_tris_wide`
    on the card against B5 on the same tree, under the same rule;
 17. the profiling tools' kernels (`bvh_tpu_torch/tools/`): T6 column
-   fetch in bf16 and int8 at tools/probe_int8_fetch.py's shapes, bit for
-   bit against its plain version, then its and the library's times (µs
-   per fetch); T5 wide-step probe bit for bit against its plain version
-   at 512 iterations on four of tools/probe_tpu.py's configs (and one
+   fetch in bf16 and int8 at tools/probe_int8_fetch.py's shapes on the
+   table's column copy, bit for bit against its plain version, then its
+   and the library's times (µs per fetch; the device's time, medians of
+   21) and the column copy's time; T5 wide-step probe bit for bit
+   against its plain version at 512 iterations on four of
+   tools/probe_tpu.py's configs (and one
    on inputs where about half the slab tests hit), then the cost per
    iteration of all 12 configs and one that fills the card, and the
    glue's sorts and gathers at 1M rows; T1: on the chain table B1, its
@@ -121,6 +128,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -705,16 +713,42 @@ def sphere_rays(rng, n: int, dim: int):
 
 
 def sphere_bound(tables, packed, kf, ki) -> tuple[float, str]:
-    """B6's bound from its own step counts: the pair rows and words of
-    its inner steps and one sphere row per leaf entered (lower bounds)."""
+    """B6's bound from its own step counts: the pair rows' boxes and
+    words of its inner steps and one sphere (centre, radius) per leaf
+    entered, the rows' padding not counted (lower bounds)."""
     dim = tables.dim
     inner, leaves = int(ki[1].sum()), int(ki[2].sum())
-    fetched = (16 * dim + 8) * inner + 4 * (dim + 1) * leaves
-    return bound(nbytes(packed, kf, ki)
-                 + min(nbytes(tables.node_b, tables.node_w, tables.sph),
-                       fetched),
+    row, sph = 16 * dim + 8, 4 * (dim + 1)
+    fetched = row * inner + sph * leaves
+    whole = row * tables.pairs.shape[0] + sph * tables.spheres.shape[0]
+    return bound(nbytes(packed, kf, ki) + min(whole, fetched),
                  2 * OPS_BOX_DIM * dim * inner
                  + (OPS_SPHERE + OPS_BOX_DIM * dim) * leaves)
+
+
+def simt_by_groups(ki) -> float:
+    """SIMT efficiency of one ray a lane, from the counts in launch
+    order: each group of 32 rays' steps (inner steps + leaves entered)
+    over 32 x its largest."""
+    steps = (ki[1] + ki[2]).to(torch.int64)
+    g = torch.nn.functional.pad(steps, (0, -steps.numel() % 32)).view(-1, 32)
+    return float(g.sum()) / float(32 * g.amax(1).sum())
+
+
+def b6_ptxas(dim: int) -> dict:
+    """ptxas' registers, frame and spills of B6's instantiations at
+    `dim`, keyed closest/any, fast/robust, with SIMT counts or not."""
+    from bvh_tpu_torch import kernels
+
+    out = {}
+    for name, fig in kernels.ptxas_figures(
+            f"sphere_traverse_kernelILi{dim}E").items():
+        m = re.search(r"ILi\dELb(\d)ELb(\d)ELb(\d)E", name)
+        key = (("any" if m.group(1) == "1" else "closest") + "_"
+               + ("robust" if m.group(2) == "1" else "fast")
+               + ("_counts" if m.group(3) == "1" else ""))
+        out[key] = fig
+    return out
 
 
 def hit_matches_launch(hit, kf, ki) -> bool:
@@ -759,7 +793,8 @@ def dims_phase() -> dict:
     from bvh_tpu_torch.traverse.stack import required_stack_depth
     from bvh_tpu_torch.traverse.wavefront import make_sphere_leaf_fn, traverse
 
-    out = dict(launches=0, err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    out = dict(launches=0, err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               per_dim={})
     t_phase = time.perf_counter()
     for dim in (2, 3, 4):
         t_dim = time.perf_counter()
@@ -860,12 +895,39 @@ def dims_phase() -> dict:
         out["plain_ms"] += plain_ms * SUBSET
         out["bound_ms"] += b_ms
         out["bound_by"] = b_by
+        # diagnostics: ns a step, SIMT efficiency (one ray a lane in
+        # launch order, from the counts; and the kernel's own lanes' and
+        # warps' steps in the same launch), occupancy and ptxas
+        steps = torch.zeros(2, dtype=torch.int64, device=DEV)
+        if not same(sk.sphere_traverse(tables, spacked, steps=steps, **kw),
+                    last):
+            raise AssertionError("B6 with SIMT counts diverged")
+        inner, leaves = int(ki[1].sum()), int(ki[2].sum())
+        diag = dict(
+            ms=ms, ms_unsorted=ms_unsorted, bound_ms=b_ms,
+            inner_steps=inner, leaves=leaves,
+            ns_per_step=ms * 1e6 / (inner + leaves),
+            simt_one_ray_a_lane=simt_by_groups(ki[:, order]),
+            simt_one_ray_a_lane_unsorted=simt_by_groups(ki),
+            simt_kernel=int(steps[0]) / (32 * int(steps[1])),
+            lane_steps=int(steps[0]), warp_steps=int(steps[1]),
+            warps_per_sm=kernels.sphere_traverse_occupancy(dim),
+            ptxas=b6_ptxas(dim))
+        out["per_dim"][dim] = diag
         log(f"# B6, {dim}D, {SCALE_M} spheres, {SCALE_RAYS} rays: kernel "
             f"{ms:.3f} ms in coherence order ({ms_unsorted:.3f} ms unsorted), "
             f"{SCALE_RAYS / ms / 1e3:.3f} Mrays/s; plain {plain_ms:.3f} ms "
             f"per {psub.shape[1]} rays (x{SUBSET} = {plain_ms * SUBSET:.3f}); "
             f"bound {b_ms:.4f} ms ({b_by}); {int(hit.hit.sum())} hits; "
             f"launches {n_launch}; phase {time.perf_counter() - t_dim:.1f} s")
+        log(f"# B6, {dim}D diagnostics: {inner} inner steps + {leaves} leaves"
+            f", {diag['ns_per_step']:.4f} ns a step; SIMT efficiency "
+            f"{diag['simt_kernel']:.4f} (the kernel's lanes' over its warps'"
+            f" steps, {diag['lane_steps']} / 32 x {diag['warp_steps']}), "
+            f"{diag['simt_one_ray_a_lane']:.4f} for one ray a lane in launch "
+            f"order ({diag['simt_one_ray_a_lane_unsorted']:.4f} unsorted; "
+            f"inner steps + leaves, groups of 32); {diag['warps_per_sm']} "
+            f"warps an SM; ptxas {diag['ptxas']}")
     log(f"# phase 14 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -1083,10 +1145,12 @@ def tool_kernels_phase() -> dict:
     tab_bf, tab_i8, idx = t6.make_inputs(device=DEV)
     nb = ops = 0
     for tab, r in ((tab_bf, r6["bf16"]), (tab_i8, r6["int8"])):
-        nb += nbytes(tab, idx, r["out"])
+        nb += nbytes(t6.column_copy(tab), idx, r["out"])
         ops += r["out"].numel() * t6.ITERS
     out["t6"] = dict(
         ms=r6["bf16"]["ms"] + r6["int8"]["ms"],
+        ms_host=r6["bf16"]["ms_host"] + r6["int8"]["ms_host"],
+        copy_ms=r6["bf16"]["copy_ms"] + r6["int8"]["copy_ms"],
         plain_ms=r6["bf16"]["plain_ms"] + r6["int8"]["plain_ms"],
         library_ms=r6["bf16"]["window_ms"] + r6["int8"]["window_ms"],
         bound=bound(nb, ops), us_per_fetch={
@@ -1095,7 +1159,11 @@ def tool_kernels_phase() -> dict:
             for d in ("bf16", "int8")
             for k in ("index_select", "one_hot", "window")},
         kernel_us_per_fetch={d: r6[d]["ms"] * 1e3 / t6.ITERS
-                             for d in ("bf16", "int8")})
+                             for d in ("bf16", "int8")},
+        per_dtype={d: dict(ms=r6[d]["ms"], ms_host=r6[d]["ms_host"],
+                           library_ms=r6[d]["window_ms"])
+                   for d in ("bf16", "int8")},
+        floor_ms=r6["floor_ms"])
     # T5: bit for bit at 512 iterations on four of the tool's configs
     rng = np.random.default_rng(0)
     for B, C, sort8, chains in ((2048, 128, False, 1), (2048, 128, True, 1),
@@ -1566,14 +1634,14 @@ def run() -> dict:
     t17 = tool_kernels_phase()
     log(f"# card: {card_line()}")
 
-    def entry(k, source, replaces, key, n):
+    def entry(k, source, replaces, key, n, **extra):
         return {"name": k.name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": err[key],
                 "ms": timings[f"{key}_kernel_ms"],
                 "plain_ms": timings[f"{key}_plain_ms"],
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-                "library_ms": None}
+                "library_ms": None, **extra}
 
     def tool_entry(name, source, replaces, launches, max_err, m,
                    library_ms=None, **extra):
@@ -1610,7 +1678,8 @@ def run() -> dict:
               "bvh_tpu/traverse/pallas_kernel.py:93", "b5", b5["launches"]),
         entry(kernels.SPHERE_TRAVERSE,
               "bvh_tpu_torch/csrc/binary_traverse.cu",
-              "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"]),
+              "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"],
+              per_dim=b6["per_dim"]),
         tool_entry("T1 traverse_pairs_ablate (B1's variants)",
                    "bvh_tpu_torch/csrc/wide_treelet.cu",
                    "tools/ablate_kernel.py:97",
@@ -1651,7 +1720,14 @@ def run() -> dict:
                     t17["launches"][kernels.COLUMN_FETCH.name]},
                    0.0, t17["t6"], library_ms=t17["t6"]["library_ms"],
                    us_per_fetch=t17["t6"]["us_per_fetch"],
-                   kernel_us_per_fetch=t17["t6"]["kernel_us_per_fetch"]),
+                   kernel_us_per_fetch=t17["t6"]["kernel_us_per_fetch"],
+                   per_dtype=t17["t6"]["per_dtype"], timing=(
+                       "ms, library_ms: the device's own time, queued "
+                       "behind a head start, medians of 21; "
+                       "kernel_ms_with_host: with the wrapper's host time"),
+                   kernel_ms_with_host=t17["t6"]["ms_host"],
+                   column_copy_ms=t17["t6"]["copy_ms"],
+                   launch_floor_ms=t17["t6"]["floor_ms"]),
     ]}
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
 CUDA device: the render kernels (B1 on the column tables, B2), the
 binary traversal (B5) and the sphere traversal at dims 2, 3 and 4 (B6)
-in every mode (closest/any-hit x fast/robust), phase A2 (B4) and the
+in every mode (closest/any-hit x fast/robust), B6's work counter at
+ray counts around a warp and past what the card holds at once, with
+inverted rays mixed in, and its SIMT counts, phase A2 (B4) and the
 two-level render, the group build (B3) on groups that reach each of its
 branches on its warp path and its CTA path, and the profiling tools' kernels (T6 column fetch, T5 wide
 step probe, T1 B1's ablation variants). They skip where there is no device. The repository's conftest imports jax, which
@@ -475,6 +477,71 @@ def test_sphere_kernel_stack_one_short(spheres):
         sk.pallas_intersect_spheres(bvh, c, r, rays, stack_depth=need - 1)
 
 
+def _ragged_rays(rays, R, inverted_every=0):
+    """R rays from `rays`, repeated as needed; every `inverted_every`th
+    with tmin > tmax (a ray that starts inactive)."""
+    reps = -(-R // rays.tmin.numel())
+    org = rays.org.repeat(reps, 1)[:R]
+    d = rays.dir.repeat(reps, 1)[:R]
+    tmin = rays.tmin.repeat(reps)[:R].clone()
+    tmax = rays.tmax.repeat(reps)[:R].clone()
+    if inverted_every:
+        tmin[::inverted_every] = 2.0
+        tmax[::inverted_every] = 1.0
+    return Ray(org.contiguous(), d.contiguous(), tmin, tmax)
+
+
+# ray counts for the refill: one lane, part of a warp, a warp and one,
+# and more than an H100 holds at once (132 SMs x 2,048 threads =
+# 270,336), not a multiple of a warp or of any grid of 128-thread CTAs
+REFILL_R = [1, 31, 33, 270_336 + 77]
+
+
+@pytest.mark.parametrize("R", REFILL_R)
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sphere_kernel_refill(spheres, R, any_hit):
+    """B6's warps take rays from the work counter (in 2D and 3D again as
+    their lanes go idle) and write each result at its ray's index: every
+    output bit-equal to the plain version, with every 7th ray inverted
+    (tmin > tmax, a miss with no steps) and, for any hit, rays that stop
+    at their first hit."""
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    bvh, c, r, rays = spheres
+    tables = sk.make_tables(bvh, c, r)
+    packed = wt.pack_rays(_ragged_rays(rays, R, inverted_every=7))
+    kw = dict(any_hit=any_hit, robust=False,
+              stack_depth=required_stack_depth(bvh))
+    gf, gi = sk.sphere_traverse(tables, packed, **kw)
+    pf, pi = sk.sphere_traverse_ref(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    assert not gi[1, ::7].any() and bool(torch.isinf(gf[0, ::7]).all())
+    if R > 1000:
+        assert int(torch.isfinite(gf[0]).sum()) > 100
+
+
+def test_sphere_kernel_simt_counts(spheres):
+    """The kernel's SIMT counts: its lanes' steps cover the rays' inner
+    steps and leaves (a leaf is at least one test), and no more than 32
+    a warp step; the outputs are those of the launch without counts."""
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    bvh, c, r, rays = spheres
+    tables = sk.make_tables(bvh, c, r)
+    packed = wt.pack_rays(rays)
+    kw = dict(any_hit=False, robust=False,
+              stack_depth=required_stack_depth(bvh))
+    steps = torch.zeros(2, dtype=torch.int64, device="cuda")
+    gf, gi = sk.sphere_traverse(tables, packed, steps=steps, **kw)
+    pf, pi = sk.sphere_traverse(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    lane, warp = (int(x) for x in steps)
+    assert int(gi[1].sum() + gi[2].sum()) <= lane <= 32 * warp
+    with pytest.raises(ValueError, match="closest"):
+        sk.sphere_traverse(tables, packed, steps=steps,
+                           **dict(kw, any_hit=True))
+
+
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 def test_column_fetch_kernel_equals_plain(dtype):
     """T6 at the tool's shapes (ROWS 156/216, P 1,280, B 512), 200 fetches,
@@ -485,10 +552,33 @@ def test_column_fetch_kernel_equals_plain(dtype):
 
     tab_bf, tab_i8, idx = tf.make_inputs(device="cuda")
     table = tab_bf if dtype == "bf16" else tab_i8
+    cols = tf.column_copy(table)
     before = kernels.COLUMN_FETCH.launches
-    got = tf.column_fetch(table, idx, tf.ITERS)
+    got = tf.column_fetch(cols, idx, tf.ITERS, table.shape[0])
     assert kernels.COLUMN_FETCH.launches == before + 1
     want = tf.column_fetch_ref(table, idx, tf.ITERS)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("rows, iters", [(13, 1), (21, 150), (3, 7),
+                                         (40, 64)])
+def test_column_fetch_kernel_edges(dtype, rows, iters):
+    """T6 where rows are not a multiple of the run (8 bf16, 16 int8), an
+    idx at P - 1 (the first fetch wraps), idx past P and below 0 (taken
+    mod P), 1 fetch, and more fetches than columns (P = 64): bit for bit
+    with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools import probe_int8_fetch as tf
+
+    tab_bf, tab_i8, idx = tf.make_inputs(rows, rows, 64, 37, seed=rows,
+                                         device="cuda")
+    table = tab_bf if dtype == "bf16" else tab_i8
+    idx[:4] = torch.tensor([63, 0, 64 + 5, -3], dtype=torch.int32)
+    got = tf.column_fetch(tf.column_copy(table), idx, iters, rows)
+    want = tf.column_fetch_ref(table, idx, iters)
+    assert got.shape == (rows, 37)
     assert torch.equal(_bits(got), _bits(want))
 
 

@@ -7,7 +7,8 @@ kernels, in interpret mode on the CPU:
   where about 59% of the slab tests hit;
 - T6, `column_fetch_ref` against the tool's `kern_bf` and `kern_i8`
   (closures inside its `main()`, restated here), at ROWS = 12, P = 64,
-  B = 32, 8 iterations;
+  B = 32, 8 iterations, through the wrapper on the kernel's column copy;
+  the copy's layout and the wrapper's checks of it;
 - the tool's byte-transport check.
 
 Why T5 needs the `xla_rounding` fixture: XLA's CPU backend contracts
@@ -165,7 +166,7 @@ def test_column_fetch_matches_pallas(dtype):
     rows, P, B, iters = 12, 64, 32, 8
     tab_bf, tab_i8, idx = tf.make_inputs(rows, rows, P, B, device="cpu")
     table = tab_bf if dtype == "bf16" else tab_i8
-    got = tf.column_fetch(table, idx, iters)
+    got = tf.column_fetch(tf.column_copy(table), idx, iters, rows)
     if dtype == "bf16":
         jtab = jnp.asarray(table.view(torch.int16).numpy()).view(jnp.bfloat16)
         kern, odt = _kern_bf, jnp.float32
@@ -179,6 +180,53 @@ def test_column_fetch_matches_pallas(dtype):
     assert got.numpy().tobytes() == want.tobytes()
     # the sum is the fetches' sum: idx + i wraps past P on some lanes
     assert ((idx + iters) > P).any()
+
+
+@pytest.mark.parametrize("dtype, rows, run", [("bf16", 156, 4),
+                                               ("int8", 216, 8),
+                                               ("bf16", 13, 4),
+                                               ("int8", 21, 8)])
+def test_column_copy_is_the_padded_transpose(dtype, rows, run):
+    """The kernel's [P, rows_pad] copy: column c of the table is row c,
+    rows_pad the rows rounded up to the kernel's 8-byte run, the padding
+    zero;
+    the wrapper's plain path on it is the plain version on the table."""
+    tab_bf, tab_i8, idx = tf.make_inputs(rows, rows, 40, 24, device="cpu")
+    table = tab_bf if dtype == "bf16" else tab_i8
+    cols = tf.column_copy(table)
+    width = -(-rows // run) * run
+    assert tf.run_length(table.dtype) == run
+    assert cols.shape == (40, width) and cols.dtype == table.dtype
+    assert cols.is_contiguous()
+    want = torch.zeros((40, width), dtype=table.dtype)
+    want[:, :rows] = table.t()
+    assert torch.equal(cols.view(torch.int8 if dtype == "int8"
+                                 else torch.int16),
+                       want.view(torch.int8 if dtype == "int8"
+                                 else torch.int16))
+    # idx past P and below 0 are taken mod P, as (idx + i) % P is
+    idx = idx.clone()
+    idx[:3] = torch.tensor([39, 40 + 7, -5], dtype=torch.int32)
+    assert torch.equal(tf.column_fetch(cols, idx, 50, rows),
+                       tf.column_fetch_ref(table, idx, 50))
+
+
+def test_column_fetch_rejects_a_wrong_copy():
+    tab_bf, tab_i8, idx = tf.make_inputs(21, 21, 32, 8, device="cpu")
+    cols = tf.column_copy(tab_bf)      # [32, 24]
+    for bad, rows in ((tab_bf.t(), 21),                 # not contiguous
+                      (tab_bf.t().contiguous(), 21),    # not padded
+                      (cols, 20),                       # padded past a run
+                      (cols, 25),                       # too narrow
+                      (cols.float(), 21),               # wrong type
+                      (cols[:, None], 21)):             # wrong rank
+        with pytest.raises(ValueError, match="column_copy"):
+            tf.column_fetch(bad, idx, 4, rows)
+    cols8 = tf.column_copy(tab_i8)     # [32, 24]
+    with pytest.raises(ValueError, match="column_copy"):
+        tf.column_fetch(cols8, idx, 4, 16)
+    assert torch.equal(tf.column_fetch(cols8, idx, 4, 21),
+                       tf.column_fetch_ref(tab_i8, idx, 4))
 
 
 def test_column_fetch_window_product_is_the_sum():

@@ -253,14 +253,43 @@ def test_b6_sort_rays_on_and_off(scenes, name):
     assert not torch.equal(order, torch.arange(order.numel()))
 
 
+@pytest.mark.parametrize("name", ["d2", "d3", "d4"])
+def test_b6_packed_rows(scenes, name):
+    """B6's rows: a pair row is `pair_tables`' left and right boxes, then
+    the two index words' int32 bits, then zeros to (dim + 1) x 16 bytes;
+    a sphere row the centre and radius by prim position, then zeros to
+    16 (2D, 3D) or 32 (4D) bytes."""
+    s = scenes[name]
+    dim = s["tbvh"].dim
+    c, r = torch.from_numpy(s["centers"]), torch.from_numpy(s["radii"])
+    tables = sk.make_tables(s["tbvh"], c, r)
+    node_b, node_w, root = sk.pair_tables(s["tbvh"])
+    bits = tables.pairs.view(torch.int32)
+    assert tables.pairs.shape == (node_b.shape[0], 4 * dim + 4)
+    assert tables.pairs.is_contiguous() and tables.root_word == root
+    assert torch.equal(bits[:, :4 * dim], node_b.view(torch.int32))
+    assert torch.equal(bits[:, 4 * dim:4 * dim + 2], node_w)
+    assert not bits[:, 4 * dim + 2:].any()
+    width = sk.SPHERE_WIDTH[dim]
+    assert tables.spheres.shape == (s["tbvh"].prim_ids.shape[0], width)
+    assert width * 4 % 16 == 0 and width >= dim + 1
+    pos = s["tbvh"].prim_ids
+    assert torch.equal(tables.spheres[:, :dim], c[pos])
+    assert torch.equal(tables.spheres[:, dim], r[pos])
+    assert not tables.spheres[:, dim + 1:].any()
+    # by position as given: the same rows
+    perm = sk.make_tables(s["tbvh"], c[pos], r[pos], permuted=True)
+    assert torch.equal(perm.spheres, tables.spheres)
+
+
 def test_b6_tables_fits_and_overflow(scenes):
     s = scenes["d4"]
     c, r = torch.from_numpy(s["centers"]), torch.from_numpy(s["radii"])
     tables = sk.make_tables(s["tbvh"], c, r)
-    assert tables.node_b.shape[1] == 16 and tables.sph.shape[1] == 5
-    assert tables.node_w.dtype == torch.int32 and tables.dim == 4
+    assert tables.pairs.shape[1] == 20 and tables.spheres.shape[1] == 8
+    assert tables.pairs.dtype == torch.float32 and tables.dim == 4
     pos = s["tbvh"].prim_ids
-    assert torch.equal(tables.sph[:, :4], c[pos])
+    assert torch.equal(tables.spheres[:, :4], c[pos])
     assert sk.pallas_fits_spheres(s["tbvh"], c) == bool(
         j_fits(s["jbvh"], jnp.asarray(s["centers"])))
     assert not sk.pallas_fits_spheres(s["tbvh"]._replace(
