@@ -113,17 +113,18 @@ _SIGNATURES = {
     # ptid, ptent, stats, stream
     "bvh_collect_portals": [_VP, _I, _VP, _I, _I, _I, _I, _I,
                             _VP, _VP, _VP, _VP],
-    # sup_table, Ps, sid, rays, L, robust, stack_depth, max_new,
-    # ntid, nt, stats, stream
+    # sup_cols [S, Ps, 16], Ps, sid, rays, L, robust, stack_depth,
+    # max_new, ntid, nt, stats, stream
     "bvh_collect_super_pairs": [_VP, _I, _VP, _VP, _I, _I, _I, _I,
                                 _VP, _VP, _VP, _VP],
-    # node_b, node_w, tris, rays, R, root_word, any_hit, robust,
-    # stack_depth, out_f, out_i, stream
-    "bvh_binary_traverse_tris": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                 _VP, _VP, _VP],
-    # dim, pairs, spheres, rays, R, root_word, any_hit, robust,
-    # stack_depth, out_f, out_i, next (work counter), steps (or null),
-    # stream
+    # pairs [P, 16], tris [n, 12], rays, R, root_word, any_hit, robust,
+    # stack_depth, out_f, out_i, next (the work counter, one int, zero
+    # at the launch), steps (or null), stream
+    "bvh_binary_traverse_tris": [_VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                 _VP, _VP, _VP, _VP, _VP],
+    # dim, pairs [P, 4*(dim+1)], spheres [n, 4 or 8], rays, R, root_word,
+    # any_hit, robust, stack_depth, out_f, out_i, next (as B5's),
+    # steps (or null), stream
     "bvh_sphere_traverse": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP,
                             _VP, _VP, _VP],
     # table_cols, T, P, tid, rays, L, any_hit, robust, stack_depth,
@@ -145,6 +146,8 @@ _SIGNATURES = {
     "bvh_group_build_max_p": [ctypes.POINTER(_I)],
     # P, out
     "bvh_group_build_occupancy": [_I, ctypes.POINTER(_I)],
+    # out
+    "bvh_binary_traverse_occupancy": [ctypes.POINTER(_I)],
     # dim, out
     "bvh_sphere_traverse_occupancy": [_I, ctypes.POINTER(_I)],
 }
@@ -201,6 +204,16 @@ def sphere_traverse_occupancy(dim: int) -> int:
     err = library().bvh_sphere_traverse_occupancy(dim, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"bvh_sphere_traverse_occupancy: CUDA error {err}")
+    return out.value
+
+
+def binary_traverse_occupancy() -> int:
+    """The warps of kernel B5 (closest hit, fast slab) that one SM of
+    the current device holds at once."""
+    out = _I(0)
+    err = library().bvh_binary_traverse_occupancy(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"bvh_binary_traverse_occupancy: CUDA error {err}")
     return out.value
 
 

@@ -1,26 +1,36 @@
-"""Kernels B6 and T6 of several checkouts of this repo, timed on one card
-in one call, each checkout in a process of its own, in the order given
-(name one twice to bracket another: A B B A):
+"""Kernels B4, B5, B6 and T6 of several checkouts of this repo, timed on
+one card in one call, each checkout in a process of its own, in the
+order given (name one twice to bracket another: A B B A):
 
-    python -m bvh_tpu_torch.tools.compare_checkouts DIR [DIR ...]
+    python -m bvh_tpu_torch.tools.compare_checkouts [--kernels b4,b5,b6,t6]
+        DIR [DIR ...]
 
 A checkout is a directory that holds `bvh_tpu_torch/` and
 `chip_smoke.py`, such as an earlier commit unpacked with `git archive`
 into a directory that git ignores. Each process imports that checkout's
 package, builds its kernels, and times:
+- B4 on the first A2 round of `chip_smoke.py`'s phase 13 (the
+  San-Miguel-class scene, 118,456 (ray, super) pairs) and B5 on phase
+  11's Cornell box (-q high, robust; and its first 32 rays, a launch's
+  fixed cost) and phase 12's 262K tree (fast):
+  the inputs are made once, by this file's own checkout, and saved
+  to `_archive/b45_inputs.npz` (git ignores `_archive/`), so the 10M
+  build runs once; each checkout makes its own tables from them. Each
+  kernel is timed both ways: `chip_smoke.time_ms`' host loop (the mean
+  of 20 calls after one, wrapper included) and the device's own time
+  (the median of 21 calls, each queued behind a head start, as
+  `timing.time_calls(..., queued=True)`);
 - B6 on `chip_smoke.py`'s phase 14 scale case (262,144 spheres built by
   `build_default(MEDIUM)`, 1,048,576 rays, closest hit, fast slab) per
   dim, in coherence order and unsorted, as phase 14 times it
   (`chip_smoke.time_ms`: the mean of 10 calls after one), three times;
 - T6 at its tool's shapes in both dtypes, and the window product beside
-  it: the device's own time, the median of 21 calls, each queued behind
-  a head start (as `timing.time_calls(..., queued=True)`). A checkout
-  whose T6 reads the [rows, P] table (one without `column_copy`) has its
-  kernel launched without its wrapper, whose idx range check waits for
-  the device.
+  it: the device's own time, as above. A checkout whose T6 reads the
+  [rows, P] table (one without `column_copy`) has its kernel launched
+  without its wrapper, whose idx range check waits for the device.
 Each process checks T6 against its plain version and prints a digest of
-B6's outputs, so that outputs equal across checkouts show equal
-digests, and ends with one JSON line of its times.
+B4's, B5's and B6's outputs, so that outputs equal across checkouts
+show equal digests, and ends with one JSON line of its times.
 """
 
 from __future__ import annotations
@@ -32,8 +42,13 @@ import statistics
 import subprocess
 import sys
 
+# the checkout that holds this file, which makes B4's and B5's inputs
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 HEAD_START_CYCLES = 2_000_000  # as tools/timing.py
 REPS = 21
+KERNELS = ("b4", "b5", "b6", "t6")
+INPUTS = os.path.join("_archive", "b45_inputs.npz")
 
 
 def queued_ms(fn, n: int = REPS):
@@ -144,7 +159,148 @@ def time_t6() -> dict:
     return res
 
 
-def one(tree: str) -> None:
+def _tree_arrays(out: dict, key: str, bvh, flat, packed, **kw) -> None:
+    out.update({f"{key}_bounds": bvh.bounds, f"{key}_index": bvh.index,
+                f"{key}_prim_ids": bvh.prim_ids, f"{key}_flat": flat,
+                f"{key}_rays": packed})
+    out[f"{key}_meta"] = json.dumps(dict(
+        node_count=int(bvh.node_count), prim_count=int(bvh.prim_count), **kw))
+
+
+def prepare(path: str) -> None:
+    """B4's and B5's inputs, made with this checkout's code on the card
+    and saved to `path` in layouts that every checkout reads: the
+    Cornell box through the CLI at -q high (phase 11), the 262K tree of
+    the port's quality-high build with its 1024x1024 primary rays
+    (phases 5 and 12), and the first A2 round of the San-Miguel-class
+    scene through the CLI (phase 13), with the super tables as
+    [S, 16, Ps]."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as smoke
+    from bvh_tpu_torch.build.minitree_fast import build_minitree_fast
+    from bvh_tpu_torch.build.reinsertion import optimize_reinsertion
+    from bvh_tpu_torch.cli import benchmark as cli
+    from bvh_tpu_torch.cli.camera import primary_rays
+    from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
+    from bvh_tpu_torch.io.obj import load_obj
+    from bvh_tpu_torch.io.scenes import scene_camera, sponza_class
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from bvh_tpu_torch.traverse.stack import required_stack_depth
+
+    out: dict = {}
+    obj = os.path.join(smoke.HERE, "tests", "golden", "cornell.obj")
+    args = smoke.cli_args([obj, "--eye", "0", "1", "2", "--dir", "0", "0",
+                           "-1", "--up", "0", "1", "0", "-p",
+                           "--robust-traversal", "-q", "high", "-w",
+                           str(smoke.SIDE), "--height", str(smoke.SIDE),
+                           "-o", os.devnull])
+    res = cli.run(*load_obj(obj), args)
+    _tree_arrays(out, "cornell", res.bvh, res.flat, wt.pack_rays(res.rays),
+                 permuted=True, robust=True,
+                 stack_depth=max(16, required_stack_depth(res.bvh)))
+
+    tris = sponza_class(smoke.N_TRIS, seed=0)
+    mn, mx, cc = (torch.from_numpy(a).cuda() for a in (
+        tris.min(axis=1), tris.max(axis=1), tris.mean(axis=1)))
+    tree = optimize_reinsertion(build_minitree_fast(mn, mx, cc))
+    tt = torch.from_numpy(tris)
+    flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
+    rays = primary_rays(*scene_camera(tris), smoke.SIDE, smoke.SIDE,
+                        device="cuda")
+    _tree_arrays(out, "sponza", tree, flat, wt.pack_rays(rays),
+                 permuted=False, robust=False,
+                 stack_depth=required_stack_depth(tree))
+
+    tris = sponza_class(smoke.N_BIG, seed=0)
+    eye, d, up = scene_camera(tris)
+    args = smoke.cli_args(["sponza_class.obj", "-q", "high", "-w",
+                           str(smoke.SIDE), "--height", str(smoke.SIDE),
+                           "-o", os.devnull],
+                          eye=[float(x) for x in eye],
+                          dir=[float(x) for x in d], up=[float(x) for x in up])
+    res = cli.run(tris[:, 0], tris[:, 1], tris[:, 2], args)
+    first, _ = smoke.first_a2_round(res.tl, wt.pack_rays(res.rays))
+    out.update(b4_sup_table=res.tl.sup_table,
+               b4_sid=first["sid"], b4_rays=first["rays"],
+               b4_meta=json.dumps(first["kw"]))
+    np.savez(path, **{k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                      else v for k, v in out.items()})
+    print(f"# inputs saved to {path}: B4 {first['sid'].numel()} pairs, "
+          f"{first['kw']}", flush=True)
+
+
+def _both_ways(smoke, name: str, fn) -> dict:
+    """`fn` timed as the host loop (`smoke.time_ms`, 20 calls) and as the
+    device's own time (`queued_ms`), with its outputs' digest; raises if
+    a timed call's output differs from the first call's."""
+    first = fn()
+    host_ms, last_h = smoke.time_ms(fn, 20)
+    dev_ms, last_d = queued_ms(fn)
+    if not (smoke.same(last_h, first) and smoke.same(last_d, first)):
+        raise AssertionError(f"{name}: a timed output differs")
+    out = dict(ms=dev_ms, host_ms=host_ms, digest=digest(*first))
+    print(f"# {name}: {dev_ms:.4f} ms device time (median of {REPS}, "
+          f"queued), {host_ms:.4f} ms host loop; outputs {out['digest']}",
+          flush=True)
+    return out
+
+
+def time_b5(smoke, z) -> dict:
+    """B5 on the Cornell box and on the 262K tree, with this checkout's
+    tables."""
+    import torch
+
+    from bvh_tpu_torch.core.types import Bvh
+    from bvh_tpu_torch.traverse import binary_kernel as bk
+
+    res = {}
+    for key in ("cornell", "sponza"):
+        meta = json.loads(str(z[f"{key}_meta"]))
+
+        def t(name):
+            return torch.from_numpy(z[f"{key}_{name}"]).cuda()
+
+        bvh = Bvh(t("bounds"), t("index"), t("prim_ids"), meta["node_count"],
+                  meta["prim_count"])
+        tables = bk.make_tables(bvh, t("flat"), permuted=meta["permuted"])
+        packed = t("rays")
+        kw = dict(any_hit=False, robust=meta["robust"],
+                  stack_depth=meta["stack_depth"])
+        res[key] = _both_ways(smoke, f"B5 {key} ({packed.shape[1]} rays)",
+                              lambda: bk.binary_traverse(tables, packed, **kw))
+        if key == "cornell":
+            # a launch's fixed cost: one warp's rays
+            few = packed[:, :32].contiguous()
+            res["launch"] = _both_ways(
+                smoke, "B5 cornell, its first 32 rays",
+                lambda: bk.binary_traverse(tables, few, **kw))
+    return res
+
+
+def time_b4(smoke, z) -> dict:
+    """B4 on the first A2 round, on this checkout's super-table layout
+    (`WideTreelets.sup_cols` [S, Ps, 16] where it exists, else the
+    [S, 16, Ps] `sup_table`)."""
+    import torch
+
+    from bvh_tpu_torch.traverse import collect as col
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    table = torch.from_numpy(z["b4_sup_table"]).cuda()
+    if "sup_cols" in wt.WideTreelets._fields:
+        table = table.transpose(1, 2).contiguous()
+    sid = torch.from_numpy(z["b4_sid"]).cuda()
+    rays = torch.from_numpy(z["b4_rays"]).cuda()
+    kw = json.loads(str(z["b4_meta"]))
+    return _both_ways(smoke, f"B4 ({sid.numel()} pairs)",
+                      lambda: col.collect_super_pairs(table, sid, rays, **kw))
+
+
+def one(tree: str, kernels: list[str], inputs: str) -> None:
+    import numpy as np
+
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import bvh_tpu_torch
@@ -152,26 +308,53 @@ def one(tree: str) -> None:
 
     if not bvh_tpu_torch.__file__.startswith(tree):
         raise RuntimeError(f"imported {bvh_tpu_torch.__file__}, not {tree}")
-    out = dict(tree=tree, b6=time_b6(chip_smoke), t6=time_t6())
+    out: dict = dict(tree=tree)
+    if "b4" in kernels or "b5" in kernels:
+        with np.load(inputs) as z:
+            if "b4" in kernels:
+                out["b4"] = time_b4(chip_smoke, z)
+            if "b5" in kernels:
+                out["b5"] = time_b5(chip_smoke, z)
+    if "b6" in kernels:
+        out["b6"] = time_b6(chip_smoke)
+    if "t6" in kernels:
+        out["t6"] = time_t6()
     print(json.dumps(out), flush=True)
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2])
+    argv = sys.argv[1:]
+    if argv[:1] == ["--prepare"]:
+        sys.path.insert(0, ROOT)
+        prepare(argv[1])
         return 0
-    if len(sys.argv) < 2 or sys.argv[1].startswith("-"):
+    if argv[:1] == ["--one"]:
+        one(argv[1], argv[2].split(","), argv[3])
+        return 0
+    kernels = list(KERNELS)
+    if argv[:1] == ["--kernels"]:
+        kernels = argv[1].split(",")
+        argv = argv[2:]
+    if not argv or argv[0].startswith("-") or set(kernels) - set(KERNELS):
         print(__doc__)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout,
         end="", flush=True)
+    inputs = os.path.join(ROOT, INPUTS)
+    if ({"b4", "b5"} & set(kernels)) and not os.path.exists(inputs):
+        os.makedirs(os.path.dirname(inputs), exist_ok=True)
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--prepare", inputs], cwd=ROOT).returncode
+        if rc:
+            return rc
     rc = 0
-    for tree in map(os.path.abspath, sys.argv[1:]):
+    for tree in map(os.path.abspath, argv):
         print(f"== {tree}", flush=True)
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree], cwd=tree).returncode
+                              "--one", tree, ",".join(kernels), inputs],
+                             cwd=tree).returncode
     return rc
 
 

@@ -13,7 +13,10 @@ B4 is the counterpart of `_collect_core` in
 two-level scenes: the same walk per (ray, super) pair, over the super's
 own pair table [16, Ps] from root word 1 << 4, folding the slab planes
 with NaN-propagating min/max as the reference does there (ROADMAP C6,
-C10).
+C10). Its kernel reads the super tables as `WideTreelets.sup_cols`
+[S, Ps, 16], a pair's 14 floats in one 64-byte row; its plain version
+reads the same storage as the [S, 16, Ps] `WideTreelets.sup_table`
+view, the reference's layout.
 
 Top table: [16, Pt] f32, one column per top inner node's child pair;
 rows 0-5 left bounds, 6-11 right bounds, 12-13 the children's index
@@ -22,8 +25,9 @@ words as f32. A word with a nonzero low nibble is a portal,
 
 `collect_portals` and `collect_super_pairs` run the CUDA kernels
 (csrc/collect.cu) for tensors on a CUDA device, and `collect_portals_ref`
-and `collect_super_pairs_ref`, the plain PyTorch versions, for tensors
-on the CPU.
+and `collect_super_pairs_plain` (`collect_super_pairs_ref` on
+`sup_cols`' transposed view), the plain PyTorch versions, for tensors on
+the CPU.
 """
 
 from __future__ import annotations
@@ -94,6 +98,16 @@ def collect_super_pairs_ref(sup_table, sid, rays, *, robust: bool,
         lambda col: sup_table[s, :, col.clamp(0, n_cols - 1)].T, rays,
         1 << 4, robust=robust, stack_depth=stack_depth, max_portals=max_new,
         nan_minmax=True)
+
+
+def collect_super_pairs_plain(sup_cols, sid, rays, *, robust: bool,
+                              stack_depth: int, max_new: int):
+    """`collect_super_pairs_ref` on the super rows [S, Ps, 16]
+    (`WideTreelets.sup_cols`) that the kernel takes, through their
+    [S, 16, Ps] view: the plain version with the kernel's inputs."""
+    return collect_super_pairs_ref(sup_cols.transpose(1, 2), sid, rays,
+                                   robust=robust, stack_depth=stack_depth,
+                                   max_new=max_new)
 
 
 def _collect_ref(fetch, rays, root_word: int, *, robust: bool,
@@ -216,27 +230,23 @@ def collect_portals(top_node_t, rays, root_word: int, *, robust: bool,
     return ptid, ptent, stats
 
 
-def collect_super_pairs(sup_table, sid, rays, *, robust: bool,
-                        stack_depth: int, max_new: int):
-    """Phase A2: kernel B4 for CUDA tensors, the plain version for CPU
-    tensors. Same outputs as `collect_super_pairs_ref`."""
-    if rays.device.type == "cpu":
-        return collect_super_pairs_ref(sup_table, sid, rays, robust=robust,
-                                       stack_depth=stack_depth,
-                                       max_new=max_new)
-    if rays.device.type != "cuda":
-        raise ValueError(f"collect_super_pairs: unsupported device "
-                         f"{rays.device}")
+def check_super_inputs(sup_cols, sid, rays, stack_depth: int) -> None:
+    """Raise ValueError unless B4's inputs are what its kernel takes: a
+    contiguous, 16-byte aligned [S, Ps, 16] f32 row table
+    (`WideTreelets.sup_cols`, not the [S, 16, Ps] `sup_table`), [L]
+    int32 sid and [8, L] f32 rays on one device, and a stack within the
+    compiled capacity."""
     if not 1 <= stack_depth <= kernels.TOP_STACK_MAX:
         raise ValueError(f"collect_super_pairs: stack depth {stack_depth} "
                          f"exceeds the kernel's {kernels.TOP_STACK_MAX}")
     L = sid.shape[0]
-    if (sup_table.device != rays.device or sup_table.dtype != torch.float32
-            or sup_table.dim() != 3 or sup_table.shape[1] != 16
-            or not sup_table.is_contiguous()):
-        raise ValueError("collect_super_pairs: sup_table must be a "
-                         f"contiguous [S, 16, Ps] float32 tensor on "
-                         f"{rays.device}")
+    if (sup_cols.device != rays.device or sup_cols.dtype != torch.float32
+            or sup_cols.dim() != 3 or sup_cols.shape[2] != 16
+            or not sup_cols.is_contiguous() or sup_cols.data_ptr() % 16):
+        raise ValueError("collect_super_pairs: the super tables must be the "
+                         "row layout, a contiguous 16-byte aligned "
+                         f"[S, Ps, 16] float32 tensor on {rays.device} "
+                         "(WideTreelets.sup_cols)")
     if (sid.device != rays.device or sid.dtype != torch.int32
             or sid.dim() != 1 or not sid.is_contiguous()):
         raise ValueError("collect_super_pairs: sid must be a contiguous [L] "
@@ -245,11 +255,28 @@ def collect_super_pairs(sup_table, sid, rays, *, robust: bool,
             or not rays.is_contiguous()):
         raise ValueError("collect_super_pairs: rays must be a contiguous "
                          "[8, L] float32 tensor")
+
+
+def collect_super_pairs(sup_cols, sid, rays, *, robust: bool,
+                        stack_depth: int, max_new: int):
+    """Phase A2 over the super tables [S, Ps, 16]
+    (`WideTreelets.sup_cols`): kernel B4 for CUDA tensors, the plain
+    version (`collect_super_pairs_plain`) for CPU tensors. Same outputs
+    as `collect_super_pairs_ref`."""
+    if rays.device.type == "cpu":
+        return collect_super_pairs_plain(sup_cols, sid, rays, robust=robust,
+                                         stack_depth=stack_depth,
+                                         max_new=max_new)
+    if rays.device.type != "cuda":
+        raise ValueError(f"collect_super_pairs: unsupported device "
+                         f"{rays.device}")
+    check_super_inputs(sup_cols, sid, rays, stack_depth)
+    L = sid.shape[0]
     ntid = torch.empty((max_new, L), dtype=torch.int32, device=rays.device)
     nt = torch.empty((max_new, L), dtype=torch.float32, device=rays.device)
     stats = torch.empty((3, L), dtype=torch.int32, device=rays.device)
     kernels.COLLECT_SUPER.launch(
-        sup_table.data_ptr(), sup_table.shape[2], sid.data_ptr(),
+        sup_cols.data_ptr(), sup_cols.shape[1], sid.data_ptr(),
         rays.data_ptr(), L, int(robust), stack_depth, max_new,
         ntid.data_ptr(), nt.data_ptr(), stats.data_ptr())
     return ntid, nt, stats

@@ -2,12 +2,13 @@
 plain version, dispatcher and the reference's public names.
 
 The CUDA counterpart of `bvh_tpu.traverse.pallas_sphere`: the binary
-walk (csrc/binary_traverse.cu, `sphere_traverse_kernel`, one step a
-lane an iteration, in 2D and 3D in persistent warps that refill idle
-lanes) with the quadratic sphere test of `geom/sphere.py` at the
-leaves, for float32 trees of dim 2, 3 and 4. A hit reports
-t = u = the entry distance t0 (clamped to tmin) and v = the exit
-distance t1, as `wavefront.traverse` with `make_sphere_leaf_fn` does.
+walk that kernel B5 runs (csrc/binary_traverse.cu,
+`binary_traverse_kernel`, one step a lane an iteration, in 2D and 3D in
+persistent warps that refill idle lanes) with the quadratic sphere test
+of `geom/sphere.py` at the leaves, for float32 trees of dim 2, 3 and 4.
+A hit reports t = u = the entry distance t0 (clamped to tmin) and v =
+the exit distance t1, as `wavefront.traverse` with `make_sphere_leaf_fn`
+does.
 Float64 trees and other dims take that wavefront, as in `bvh_tpu`.
 
 Tables, one aligned row a step: node pairs as rows, pair k
@@ -19,8 +20,8 @@ f32 = centre, radius, zero padding. Kernel and plain version read the
 same rows.
 
 `sphere_traverse` runs the kernel for tensors on a CUDA device and
-`sphere_traverse_ref`, the plain PyTorch version (`wavefront.walk` over
-the same tables), for tensors on the CPU.
+`sphere_traverse_ref`, the plain PyTorch version (`binary_kernel.walk_rows`
+over the same tables), for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -37,10 +38,14 @@ from bvh_tpu_torch.geom.sphere import Sphere
 from bvh_tpu_torch.traverse.binary_kernel import (
     PALLAS_MAX_NODES,
     PALLAS_MAX_PRIMS,
+    check_walk_inputs,
+    pair_rows,
     pair_tables,
+    walk_counter,
+    walk_rows,
 )
 from bvh_tpu_torch.traverse.stack import required_stack_depth
-from bvh_tpu_torch.traverse.wavefront import Hit, hit_from, walk
+from bvh_tpu_torch.traverse.wavefront import Hit, hit_from
 from bvh_tpu_torch.traverse.wide_treelet import pack_rays
 
 DIMS = (2, 3, 4)
@@ -58,18 +63,6 @@ class SphereTables(NamedTuple):
 
 # floats a sphere row takes: centre and radius, padded to 16 bytes
 SPHERE_WIDTH = {2: 4, 3: 4, 4: 8}
-
-
-def pair_rows(node_b, node_w):
-    """One row a child pair: `pair_tables`' boxes node_b [P, 4*dim] and
-    words node_w [P, 2] int32 (their bits), zero-padded to 4*(dim+1)
-    floats."""
-    P, width = node_b.shape
-    rows = torch.zeros((P, width + 4), dtype=torch.int32,
-                       device=node_b.device)
-    rows[:, :width] = node_b.contiguous().view(torch.int32)
-    rows[:, width:width + 2] = node_w
-    return rows.view(torch.float32)
 
 
 def make_tables(bvh: Bvh, centers, radii,
@@ -94,35 +87,21 @@ def make_tables(bvh: Bvh, centers, radii,
 
 def sphere_traverse_ref(tables: SphereTables, rays, *, any_hit: bool,
                         robust: bool, stack_depth: int):
-    """Plain PyTorch version of kernel B6: `wavefront.walk` over the
-    kernel's tables, rays with tmin > tmax inactive from the start, as
-    the kernel (pallas_sphere.py:150).
+    """Plain PyTorch version of kernel B6: `walk_rows` over the kernel's
+    tables with the sphere test at the leaves.
 
     rays: [2*dim+2, R] f32 (org, dir, tmin, tmax).
     Returns out_f [3, R] f32 (t, u, v; t = +inf on a miss) and out_i
     [4, R] int32 (position or -1, nstat, lstat, stack overflow)."""
     dim = tables.dim
-    pairs = tables.pairs
-    words = pairs[:, 4 * dim:4 * dim + 2].view(torch.int32).to(torch.int64)
-
-    def fetch(fid):
-        k = fid >> 1
-        row = pairs[k]
-        return (row[:, :2 * dim], row[:, 2 * dim:4 * dim], words[k, 0],
-                words[k, 1])
 
     def leaf_fn(pos, rays_now):
         row = tables.spheres[pos]
         t0, t1, hit = Sphere(row[:, :dim], row[:, dim]).intersect(rays_now)
         return hit, t0, t0, t1
 
-    r = Ray(rays[:dim].T, rays[dim:2 * dim].T, rays[2 * dim],
-            rays[2 * dim + 1])
-    t, u, v, pos, nodes, leaves, ovf = walk(
-        fetch, leaf_fn, r, tables.root_word, r.tmin <= r.tmax,
-        any_hit=any_hit, robust=robust, stack_depth=stack_depth)
-    out_i = torch.stack([pos, nodes, leaves, ovf.to(torch.int64)])
-    return torch.stack([t, u, v]), out_i.to(torch.int32)
+    return walk_rows(tables.pairs, dim, leaf_fn, rays, tables.root_word,
+                     any_hit=any_hit, robust=robust, stack_depth=stack_depth)
 
 
 def sphere_traverse(tables: SphereTables, rays, *, any_hit: bool,
@@ -139,37 +118,21 @@ def sphere_traverse(tables: SphereTables, rays, *, any_hit: bool,
     if rays.device.type != "cuda":
         raise ValueError(f"sphere_traverse: kernel B6 runs on a CUDA device, "
                          f"not {rays.device}")
-    if not 1 <= stack_depth <= kernels.BINARY_STACK_MAX:
-        raise ValueError(f"sphere_traverse: stack depth {stack_depth} "
-                         f"exceeds the kernel's {kernels.BINARY_STACK_MAX}")
     dim, R = tables.dim, rays.shape[1]
     if dim not in DIMS:
         raise ValueError(f"sphere_traverse: kernel B6 takes dims {DIMS}")
-    checks = [("pairs", tables.pairs, (tables.pairs.shape[0], 4 * dim + 4),
-               torch.float32, 16),
-              ("spheres", tables.spheres,
-               (tables.spheres.shape[0], SPHERE_WIDTH[dim]), torch.float32,
-               16),
-              ("rays", rays, (2 * dim + 2, R), torch.float32, 4)]
-    if steps is not None:
-        checks.append(("steps", steps, (2,), torch.int64, 8))
-    for name, t, shape, dtype, align in checks:
-        if (t.device != rays.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.data_ptr() % align):
-            raise ValueError(f"sphere_traverse: {name} must be a contiguous, "
-                             f"{align}-byte aligned {list(shape)} {dtype} "
-                             f"tensor on {rays.device}")
+    check_walk_inputs("sphere_traverse", tables.pairs, tables.spheres,
+                      SPHERE_WIDTH[dim], dim, rays, stack_depth, steps)
     if steps is not None and (any_hit or robust):
         raise ValueError("sphere_traverse: SIMT counts are taken for closest "
                          "hit with the fast slab only")
     out_f = torch.empty((3, R), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, R), dtype=torch.int32, device=rays.device)
-    work = torch.empty(1, dtype=torch.int32, device=rays.device)
     kernels.SPHERE_TRAVERSE.launch(
         dim, tables.pairs.data_ptr(), tables.spheres.data_ptr(),
         rays.data_ptr(), R, tables.root_word, int(any_hit), int(robust),
-        stack_depth, out_f.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+        stack_depth, out_f.data_ptr(), out_i.data_ptr(),
+        walk_counter(rays.device),
         None if steps is None else steps.data_ptr())
     return out_f, out_i
 

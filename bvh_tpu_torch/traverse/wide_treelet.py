@@ -85,8 +85,14 @@ class WideTreelets(NamedTuple):
     n_wide:     np.ndarray   [T] wide-node column count per treelet.
     top_depth:  int          top-region depth + 1 (phase-A stack bound).
     wide_depth: int          wide levels of the deepest treelet.
-    sup_table:  [S, 16, Ps]  per-super pair tables; S == 0 when the
-                             scene has no super level.
+    sup_cols:   [S, Ps, 16]  per-super pair tables, one pair's 14 floats
+                             (rows 0-13 of `sup_table`) and 2 of
+                             padding in 64 contiguous bytes (the layout
+                             kernel B4 reads); S == 0 when the scene
+                             has no super level.
+    sup_table:  [S, 16, Ps]  (property) the same tables as the
+                             reference's row layout: a transposed view
+                             of `sup_cols`, no second copy.
     sup_depth:  int          pair-tree depth inside any super + 1.
     """
 
@@ -97,24 +103,29 @@ class WideTreelets(NamedTuple):
     n_wide: np.ndarray
     top_depth: int
     wide_depth: int
-    sup_table: torch.Tensor
+    sup_cols: torch.Tensor
     sup_depth: int
 
     @property
     def table(self) -> torch.Tensor:
         return self.table_cols.transpose(1, 2)
 
+    @property
+    def sup_table(self) -> torch.Tensor:
+        return self.sup_cols.transpose(1, 2)
+
 
 def column_tables(table: torch.Tensor) -> torch.Tensor:
-    """The column-contiguous copy [T, P, 64] of treelet tables [T, 64, P],
-    made on the tables' device."""
+    """The column-contiguous copy [T, P, rows] of tables [T, rows, P]
+    (the treelet tables, or the super tables), made on the tables'
+    device."""
     return table.transpose(1, 2).contiguous()
 
 
 def wide_treelets_from_numpy(tl, device) -> WideTreelets:
     """Carry a treelet scene whose fields convert with np.asarray (for
     example a `bvh_tpu` WideTreelets) across onto `device`, with the
-    tables put in the column layout there."""
+    treelet and super tables put in their column layouts there."""
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
@@ -123,7 +134,8 @@ def wide_treelets_from_numpy(tl, device) -> WideTreelets:
         table_cols=column_tables(t(tl.table)), n_prims=int(tl.n_prims),
         n_wide=np.asarray(tl.n_wide, np.int64),
         top_depth=int(tl.top_depth), wide_depth=int(tl.wide_depth),
-        sup_table=t(tl.sup_table), sup_depth=int(tl.sup_depth))
+        sup_cols=column_tables(t(tl.sup_table)),
+        sup_depth=int(tl.sup_depth))
 
 
 # ------------------------------------------------------- preprocessing
@@ -437,7 +449,7 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
         super_prims = int(max_prims * max(8, round(np.sqrt(len(top_all)))))
     use_super = (super_prims is not None and super_prims > max_prims
                  and bool((nprims > super_prims).any()))
-    sup_table = np.zeros((0, 16, 128), np.float32)
+    sup_cols = np.zeros((0, 128, 16), np.float32)
     sup_depth = 1
     sid_node = np.full(nc, -1, np.int64)
     if use_super:
@@ -481,9 +493,8 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
         sup_rows[:, 6:12] = bounds[left + 1]
         sup_rows[:, 12] = word_sup(left)
         sup_rows[:, 13] = word_sup(left + 1)
-        sup_table = np.zeros((S, 16, Ps), np.float32)
-        sup_table[mid_sid[:, None], np.arange(14)[None, :],
-                  local[:, None]] = sup_rows
+        sup_cols = np.zeros((S, Ps, 16), np.float32)
+        sup_cols[mid_sid, local, :14] = sup_rows
         top_nodes = np.nonzero(is_stop)[0]
     else:
         top_nodes = top_all
@@ -545,7 +556,7 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
         n_wide=np.asarray(n_wide[:T], np.int64),
         top_depth=top_depth,
         wide_depth=max(1, int(wide_depth)),
-        sup_table=torch.as_tensor(sup_table, device=device),
+        sup_cols=torch.as_tensor(sup_cols, device=device),
         sup_depth=int(sup_depth) + 1,
     )
 
@@ -781,7 +792,7 @@ def wide_treelet_caps(tl: WideTreelets, portals_per_round: int = 4) -> dict:
     a scene cut into T similar treelets enters O(T^(1/3)) of them. The
     render checks the exact overflow flags and raises the named cap."""
     T = int(tl.table.shape[0])
-    S = int(tl.sup_table.shape[0])
+    S = int(tl.sup_cols.shape[0])
     max_portals = max(32, min(512, _up_pow2(5 * round(T ** (1.0 / 3.0)))))
     if S > 0:
         mps = max(16, min(256, _up_pow2(max(S // 4,
@@ -901,7 +912,7 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
         perm = torch.sort(wsid[jj, rr], stable=True).indices  # by super
         jj, rr = jj[perm], rr[perm]
         ntid, nt, stats = collect_super(
-            tl.sup_table, wsid[jj, rr].to(torch.int32).contiguous(),
+            tl.sup_cols, wsid[jj, rr].to(torch.int32).contiguous(),
             rays_c[:, rsel[rr]].contiguous(), robust=robust,
             stack_depth=sup_stack, max_new=max_new)
         diag["a2_rounds"] += 1
@@ -1039,7 +1050,7 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     sel = portals.sel
     Rc = sel.numel()
     rays_c = packed[:, sel]
-    if tl.sup_table.shape[0] > 0:
+    if tl.sup_cols.shape[0] > 0:
         tid, tent, bits, a2 = stage(
             "phase_a2", expand_supers, tl, portals, rays_c, robust=robust,
             sup_stack=sup_stack, mps=mps, max_new=max_new,
@@ -1146,9 +1157,10 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     """`wide_treelet_intersect_tris` with phase A, the pair traversal and
     phase A2 given as `collect`, `traverse` and `collect_super`: the
     kernels' dispatchers, or their plain versions (`collect_portals_ref`,
-    `traverse_pairs_plain`, `collect_super_pairs_ref`) to run the render
-    without the kernels on any device. `traverse` is given the column
-    tables `tl.table_cols`."""
+    `traverse_pairs_plain`, `collect_super_pairs_plain`) to run the
+    render without the kernels on any device. `traverse` is given the
+    column tables `tl.table_cols`, `collect_super` the super rows
+    `tl.sup_cols`."""
     auto = wide_treelet_caps(tl, portals_per_round(tl))
     caps = dict(
         top_stack=top_stack if top_stack is not None else tl.top_depth + 1,

@@ -53,12 +53,20 @@ exits non-zero):
    launches kernel B5 and neither B1 nor B2; every ray's t, u, v,
    position and counts equal B5's plain version bit for bit; the PPM
    equals, byte for byte, the PPM drawn from the plain version's hits;
-   the intersection count is the C++ reference's 1,027,152;
+   the intersection count is the C++ reference's 1,027,152; B5's time
+   (the device's own, queued, median of 21, and the host loop through
+   its wrapper) and its bound from the rows its steps visit;
 12. (b) B5 on the 262K tree with all 1,048,576 primary rays, fast and
-   robust: every 16th ray (65,536) equal to the plain version bit for
-   bit; the hits agree with the wide-treelet render of the same tree
+   robust, through `pallas_intersect_tris` (launches counted) and
+   directly: every 16th ray (65,536) of both forms, and every ray of
+   the fast one, equal to the plain version bit for bit; the hits agree with the wide-treelet render of the same tree
    (at most 4 rays differ, by a mask flip or a hit at another t; prim
-   ids differ elsewhere only on exact-t ties);
+   ids differ elsewhere only on exact-t ties); B5's time both ways and
+   its plain version's on every ray, its
+   bound from the pair and triangle rows its steps visit (marked in a
+   run of the plain version), ns a step, SIMT efficiency (the kernel's
+   own counts, and one ray a lane from the counts), warps an SM and
+   ptxas' registers, frame and spills;
 13. (c) the CLI's `run` on sponza_class(10,000,000, 0), the
    San-Miguel-class scene, at 1024x1024 and -q high from
    `scene_camera`: the build launches B3, the treelet cut has a super
@@ -66,8 +74,9 @@ exits non-zero):
    plain version bit for bit on every (ray, super) pair of the first
    A2 round; every 16th ray's t and position equal the plain-version
    driver's; the hit count is the C++ oracle's 77,420 within 4 per
-   million; the build stage by stage, the treelet cut and the render
-   timed with CUDA events;
+   million; B4's time both ways and its bound from the super rows its
+   pairs visit; the build stage by stage, the treelet cut and the
+   render timed with CUDA events;
 14. dims, for dim 2, 3 and 4: (a) tools/bench_dims.py's configuration
    (1,024 spheres, `build_binned` on the card, 262,144 rays) through
    `pallas_intersect_spheres`, which launches kernel B6: B6 equal to its
@@ -78,8 +87,9 @@ exits non-zero):
    within rtol 2e-5; (b) 262,144 spheres, radii scaled so that coverage
    equals (a), built by `build_default(MEDIUM)` (`build_minitree` in 2D
    and 4D, kernel B3 in 3D; the tree's invariants), 1,048,576 rays
-   through B6, every 16th equal to the plain version bit for bit; B6,
-   its plain version and the build timed with CUDA events, B6 in
+   through B6, every ray equal to the plain version bit for bit; B6,
+   its plain version (on every ray) and the build timed with CUDA
+   events, B6 in
    coherence order and unsorted; per dim B6's ns a step (its time over
    inner steps plus leaves), its SIMT efficiency (its own lanes' steps
    over 32 x its warps' steps, and one ray a lane from the counts in
@@ -119,7 +129,9 @@ scene that phase built, with kernel B2 there held against its plain
 version.
 
 The second-to-last lines are a JSON object naming each kernel with its
-launches, error, times and bound, and the card's name and power limit;
+launches, error, times and bound (B4's and B5's "ms" the device's own
+time, B5's at the 262K shape with the Cornell shape beside it), and the
+card's name and power limit;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device
 the script exits 1 and prints no result. PPMs go to chiprun_out/.
 """
@@ -315,6 +327,96 @@ def visited_bytes(table_cols, tid, rays, out, **kw) -> int:
     return int(marks.seen.sum()) * wt.ROWS * table_cols.element_size()
 
 
+class RowMarks:
+    """Stands in for a table that a plain version reads by a tensor index
+    (`t[k]`; `t[s, :, col]` for B4's [S, 16, Ps] super tables): marks
+    the rows that each read names, `row_of(index)`, and counts the rows
+    read; an index for which `row_of` gives None passes unmarked."""
+
+    def __init__(self, table, n_rows: int, row_of):
+        self.table, self.shape, self.row_of = table, table.shape, row_of
+        self.seen = torch.zeros(n_rows, dtype=torch.bool,
+                                device=table.device)
+        self.reads = 0
+
+    def __getitem__(self, index):
+        rows = self.row_of(index)
+        if rows is not None:
+            self.seen[rows] = True
+            self.reads += rows.numel()
+        return self.table[index]
+
+
+def by_tensor(index):
+    return index if isinstance(index, torch.Tensor) else None
+
+
+def b5_work(tables, packed, out, **kw) -> dict:
+    """B5's work on these rays, from a run of its plain version on the
+    rays that start active (an inactive ray reads nothing) with the
+    tables' reads marked, which must reproduce the kernel's output
+    `out` on them: the distinct pair rows and triangle rows the steps
+    visit, the inner steps and the triangle tests."""
+    from bvh_tpu_torch.traverse import binary_kernel as bk
+
+    act = packed[6] <= packed[7]
+    pm = RowMarks(tables.pairs, tables.pairs.shape[0], by_tensor)
+    tm = RowMarks(tables.tris, tables.tris.shape[0], by_tensor)
+    got = bk.binary_traverse_ref(bk.BinaryTables(pm, tm, tables.root_word),
+                                 packed[:, act].contiguous(), **kw)
+    if not same(got, tuple(o[:, act] for o in out)):
+        raise AssertionError("the row-marking run diverged from B5")
+    return dict(pair_rows=int(pm.seen.sum()), tri_rows=int(tm.seen.sum()),
+                inner=int(out[1][1].sum()), leaves=int(out[1][2].sum()),
+                tests=tm.reads)
+
+
+def b5_bound(packed, out, work) -> tuple[float, str]:
+    """B5's bound: the rays and outputs once, the pair rows (boxes and
+    words, 56 bytes; not their padding) and triangle rows (48 bytes)
+    that the steps visit once each; a slab test of two boxes an inner
+    step and a Möller–Trumbore test a triangle test."""
+    return bound(nbytes(packed, *out) + 56 * work["pair_rows"]
+                 + 48 * work["tri_rows"],
+                 2 * OPS_BOX * work["inner"] + OPS_TRI * work["tests"])
+
+
+def b4_bound(sup_cols, sid, rays, out, **kw) -> tuple[float, str, dict]:
+    """B4's bound: its pairs' rays, sids and outputs once, and the
+    distinct (super, col) rows (14 floats, 56 bytes; not their padding)
+    that the pairs visit, marked in a run of the plain version on the
+    pairs that start active (a finished pair re-reads a row it visited,
+    an inactive one the root's), which must reproduce the kernel's
+    output `out` on them; OPS_PORTAL a recorded portal. Also returns the
+    rows visited, the steps of the longest walk and the active pairs."""
+    from bvh_tpu_torch.traverse import collect as col
+
+    S, Ps, _ = sup_cols.shape
+    act = rays[6] <= rays[7]
+    marks = RowMarks(sup_cols.transpose(1, 2), S * Ps,
+                     lambda index: index[0] * Ps + index[2])
+    got = col.collect_super_pairs_ref(marks, sid[act].contiguous(),
+                                      rays[:, act].contiguous(), **kw)
+    if not same(got, tuple(o[:, act] for o in out)):
+        raise AssertionError("the row-marking run diverged from B4")
+    rows = int(marks.seen.sum())
+    ms, by = bound(nbytes(sid, rays, *out) + 56 * rows,
+                   OPS_PORTAL * int(out[2][0].sum()))
+    # the plain version reads a row for every pair each step, so its
+    # steps, the longest walk's, are its reads over its pairs
+    return ms, by, dict(rows=rows, longest_walk=marks.reads // max(
+        1, int(act.sum())), active_pairs=int(act.sum()))
+
+
+def device_ms(fn, ref) -> float:
+    """The device's own time of `fn`: the median of 21 calls, each queued
+    behind a head start (`timing.time_calls(..., queued=True)`), the
+    last call's output guarded against `ref`."""
+    from bvh_tpu_torch.tools import timing
+
+    return timing.timed("device time", fn, ref, "cuda", n=21, queued=True)
+
+
 def tree_checks(bvh, n: int) -> dict:
     """The tree's invariants, computed on the card."""
     from bvh_tpu_torch.build.sah import node_half_area
@@ -422,27 +524,32 @@ def cornell_cli_phase() -> dict:
         if not ppm_same or n_hits != CORNELL_HITS:
             raise AssertionError(f"Cornell -q {q}: PPM or hit count wrong")
 
-    # B5's times at the CLI's shapes (the -q high run)
-    out["ms"], last = time_ms(lambda: bk.binary_traverse(tables, packed,
-                                                          **kw), 20)
+    # B5's times at the CLI's shapes (the -q high run): the device's own
+    # time, and the host loop through the wrapper
+    def b5():
+        return bk.binary_traverse(tables, packed, **kw)
+
+    out["ms"] = device_ms(b5, (kf, ki))
+    out["host_loop_ms"], last = time_ms(b5, 20)
     out["plain_ms"], plast = time_ms(lambda: bk.binary_traverse_ref(
         tables, packed, **kw), 2)
     if not (same(last, (kf, ki)) and same(plast, (kf, ki))):
         raise AssertionError("timed B5 output diverged")
-    fetched = 56 * int(ki[1].sum()) + 48 * int(ki[2].sum())
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes(packed, kf, ki)
-        + min(nbytes(tables.node_b, tables.node_w, tables.tris), fetched),
-        2 * OPS_BOX * int(ki[1].sum()) + OPS_TRI * int(ki[2].sum()))
-    log(f"# B5, Cornell, {packed.shape[1]} rays: kernel {out['ms']:.3f} ms, "
+    out["work"] = b5_work(tables, packed, (kf, ki), **kw)
+    out["bound_ms"], out["bound_by"] = b5_bound(packed, (kf, ki),
+                                                out["work"])
+    log(f"# B5, Cornell, {packed.shape[1]} rays: kernel {out['ms']:.4f} ms "
+        f"(the device's own time; host loop {out['host_loop_ms']:.4f} ms), "
         f"plain {out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']})")
+        f"({out['bound_by']}); work {out['work']}")
     return out
 
 
 def b5_full_phase(tree, flat, rays, whit, tl) -> dict:
     """Phase 12 (b): B5 on the 262K tree with every primary ray, fast and
-    robust, against its plain version and the wide-treelet render."""
+    robust, through its entry point and against its plain version and
+    the wide-treelet render; its times, bound and diagnostics."""
+    from bvh_tpu_torch import kernels
     from bvh_tpu_torch.traverse import binary_kernel as bk
     from bvh_tpu_torch.traverse import wide_treelet as wt
     from bvh_tpu_torch.traverse.stack import required_stack_depth
@@ -452,15 +559,22 @@ def b5_full_phase(tree, flat, rays, whit, tl) -> dict:
     packed = wt.pack_rays(rays)
     psub = packed[:, ::SUBSET].contiguous()
     sd = required_stack_depth(tree)
-    out = {}
+    out = dict(launches=0)
     for robust in (False, True):
         kw = dict(any_hit=False, robust=robust, stack_depth=sd)
+        kernels.reset_launch_counts()
+        eh = bk.pallas_intersect_tris(tree, flat, rays, robust=robust,
+                                      stack_depth=sd)
+        sync()
+        out["launches"] += kernels.BINARY_TRAVERSE.launches
         kf, ki = bk.binary_traverse(tables, packed, **kw)
         pf, pi = bk.binary_traverse_ref(tables, psub, **kw)
         sub_same = same(kf[:, ::SUBSET].contiguous(), pf) and same(
             ki[:, ::SUBSET].contiguous(), pi)
         i64 = ki.to(torch.int64)
         bh = hit_from(tree, kf[0], kf[1], kf[2], i64[0], i64[1], i64[2])
+        entry_same = all(same(getattr(eh, f), getattr(bh, f)) for f in (
+            "t", "u", "v", "prim_pos", "prim_id"))
         wh = whit if not robust else wt.wide_treelet_intersect_tris(
             tl, rays, tree.prim_ids, robust=True)
         hb, hw = torch.isfinite(bh.t), torch.isfinite(wh.t)
@@ -470,23 +584,78 @@ def b5_full_phase(tree, flat, rays, whit, tl) -> dict:
                    mask_flips=int((hb != hw).sum()), t_differs=int(t_diff.sum()),
                    prim_id_ties=int((both & ~t_diff
                                      & (bh.prim_id != wh.prim_id)).sum()),
-                   subset_bitwise=sub_same, overflow=bool(ki[3].any()),
-                   stack_depth=sd)
+                   subset_bitwise=sub_same, entry_point_equal=entry_same,
+                   overflow=bool(ki[3].any()), stack_depth=sd)
         form = "robust" if robust else "fast"
         log(f"# B5 on the 262K tree, {form}, {packed.shape[1]} rays: {res}")
-        if (not sub_same or res["overflow"]
+        if (not sub_same or not entry_same or res["overflow"]
                 or res["mask_flips"] + res["t_differs"] > EDGE_BUDGET):
             raise AssertionError(f"B5 on the 262K tree ({form}) disagrees")
-        if not robust:
-            out["hit"] = bh
-            out["ms"], last = time_ms(lambda: bk.binary_traverse(
-                tables, packed, **kw), 10)
-            if not same(last, (kf, ki)):
-                raise AssertionError("timed B5 output diverged")
-            log(f"# B5 on the 262K tree, fast: {out['ms']:.3f} ms per "
-                f"1,048,576 rays, {int(ki[1].sum())} inner steps, "
-                f"{int(ki[2].sum())} leaves")
+        if robust:
+            continue
+        out["hit"] = bh
+
+        def b5():
+            return bk.binary_traverse(tables, packed, **kw)
+
+        out["ms"] = device_ms(b5, (kf, ki))
+        out["host_loop_ms"], last = time_ms(b5, 10)
+        out["plain_ms"], plast = time_ms(lambda: bk.binary_traverse_ref(
+            tables, packed, **kw), 1)
+        if not (same(last, (kf, ki)) and same(plast, (kf, ki))):
+            raise AssertionError("timed B5 output diverged")
+        work = b5_work(tables, packed, (kf, ki), **kw)
+        out["bound_ms"], out["bound_by"] = b5_bound(packed, (kf, ki), work)
+        # diagnostics, as phase 14's for B6
+        steps = torch.zeros(2, dtype=torch.int64, device=DEV)
+        if not same(bk.binary_traverse(tables, packed, steps=steps, **kw),
+                    (kf, ki)):
+            raise AssertionError("B5 with SIMT counts diverged")
+        out["diag"] = dict(
+            work, ns_per_step=out["ms"] * 1e6 / (work["inner"]
+                                                 + work["leaves"]),
+            simt_kernel=int(steps[0]) / (32 * int(steps[1])),
+            lane_steps=int(steps[0]), warp_steps=int(steps[1]),
+            simt_one_ray_a_lane=simt_by_groups(ki),
+            warps_per_sm=kernels.binary_traverse_occupancy(),
+            ptxas=walk_ptxas("TriLeaf"))
+        log(f"# B5 on the 262K tree, fast: {out['ms']:.4f} ms per 1,048,576 "
+            f"rays (the device's own time; host loop "
+            f"{out['host_loop_ms']:.4f} ms), plain {out['plain_ms']:.3f} ms "
+            f"(every ray, equal to the kernel's); bound "
+            f"{out['bound_ms']:.4f} ms ({out['bound_by']}); diagnostics "
+            f"{out['diag']}")
+    log(f"# B5 launches through pallas_intersect_tris on the 262K tree: "
+        f"{out['launches']}")
+    if out["launches"] != 2:
+        raise AssertionError("the entry point did not launch B5 once a form")
     return out
+
+
+def first_a2_round(tl, packed):
+    """The (ray, super) pairs of the render's first A2 round, as
+    `expand_supers` hands them to B4 (phase A with the render's caps,
+    closest hit, fast slab): {"sid", "rays", "kw"}, and phase A's
+    portals."""
+    from bvh_tpu_torch.traverse import collect as col
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    caps = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
+    portals = wt.collect_and_sort(tl, packed, robust=False,
+                                  top_stack=tl.top_depth + 1,
+                                  max_portals=caps["max_portals"])
+    first = {}
+
+    def recorder(sup_cols, sid, prays, **kw):
+        if not first:
+            first.update(sid=sid, rays=prays, kw=kw)
+        return col.collect_super_pairs(sup_cols, sid, prays, **kw)
+
+    wt.expand_supers(tl, portals, packed[:, portals.sel], robust=False,
+                     sup_stack=tl.sup_depth + 1, mps=caps["mps"],
+                     max_new=caps["max_new"], max_portals=caps["max_portals"],
+                     collect_super=recorder)
+    return first, portals
 
 
 def two_level_phase() -> dict:
@@ -526,7 +695,7 @@ def two_level_phase() -> dict:
     launches = {k.name: k.launches for k in kernels.KERNELS}
     tl = res.tl
     T, _, P = tl.table.shape
-    S, _, Ps = tl.sup_table.shape
+    S, Ps, _ = tl.sup_cols.shape
     log(f"# CLI run, San-Miguel class: path {res.path}, {res.bvh.node_count} "
         f"nodes; T={T} S={S} P={P} Ps={Ps} sup_depth={tl.sup_depth} "
         f"top_depth={tl.top_depth} wide_depth={tl.wide_depth}; launches "
@@ -548,25 +717,11 @@ def two_level_phase() -> dict:
         raise AssertionError("the two-level render's hit count is off")
 
     # B4 against its plain version on every pair of the first A2 round
-    caps = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
-    packed = wt.pack_rays(res.rays)
-    portals = wt.collect_and_sort(tl, packed, robust=False,
-                                  top_stack=tl.top_depth + 1,
-                                  max_portals=caps["max_portals"])
-    first = {}
-
-    def recorder(sup_table, sid, prays, **kw):
-        if not first:
-            first.update(sid=sid, rays=prays, kw=kw)
-        return col.collect_super_pairs(sup_table, sid, prays, **kw)
-
-    wt.expand_supers(tl, portals, packed[:, portals.sel], robust=False,
-                     sup_stack=tl.sup_depth + 1, mps=caps["mps"],
-                     max_new=caps["max_new"], max_portals=caps["max_portals"],
-                     collect_super=recorder)
-    args4 = (tl.sup_table, first["sid"], first["rays"])
+    first, portals = first_a2_round(tl, wt.pack_rays(res.rays))
+    args4 = (tl.sup_cols, first["sid"], first["rays"])
     k_out = col.collect_super_pairs(*args4, **first["kw"])
-    p_out = col.collect_super_pairs_ref(*args4, **first["kw"])
+    p_out = col.collect_super_pairs_ref(tl.sup_table, first["sid"],
+                                        first["rays"], **first["kw"])
     L = first["sid"].numel()
     fin = torch.isfinite(p_out[1])
     err = float((k_out[1][fin] - p_out[1][fin]).abs().max()) if fin.any() \
@@ -585,7 +740,7 @@ def two_level_phase() -> dict:
     ph = wt._intersect(tl, Ray(r.org[sub], r.dir[sub], r.tmin[sub],
                                r.tmax[sub]), res.bvh.prim_ids,
                        col.collect_portals_ref, wt.traverse_pairs_plain,
-                       collect_super=col.collect_super_pairs_ref)
+                       collect_super=col.collect_super_pairs_plain)
     d_ = {f: int((bits(getattr(res.hit, f)[sub]) != bits(getattr(ph, f)))
                  .sum()) for f in ("t", "prim_pos")}
     log(f"# San-Miguel class render vs plain render on every {SUBSET}th ray "
@@ -594,22 +749,29 @@ def two_level_phase() -> dict:
         raise AssertionError("two-level render: kernels and plain versions "
                              "disagree")
 
-    # times: B4 at the first round's shapes, the build stage by stage
+    # times: B4 at the first round's shapes (the device's own time, and
+    # the host loop through the wrapper), the build stage by stage
     out = dict(launches=launches, err=err, pairs=L)
-    out["ms"], last = time_ms(lambda: col.collect_super_pairs(
-        *args4, **first["kw"]), 20)
+
+    def b4():
+        return col.collect_super_pairs(*args4, **first["kw"])
+
+    out["ms"] = device_ms(b4, k_out)
+    out["host_loop_ms"], last = time_ms(b4, 20)
     out["plain_ms"], plast = time_ms(lambda: col.collect_super_pairs_ref(
-        *args4, **first["kw"]), 2)
+        tl.sup_table, first["sid"], first["rays"], **first["kw"]), 2)
     if not (same(last, k_out) and same(plast, k_out)):
         raise AssertionError("timed B4 output diverged")
-    recorded = int(k_out[2][0].sum())
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes(first["sid"], first["rays"], *k_out)
-        + min(nbytes(tl.sup_table), 56 * recorded // 2),
-        OPS_PORTAL * recorded)
-    log(f"# B4, {L} pairs: kernel {out['ms']:.3f} ms, plain "
+    out["bound_ms"], out["bound_by"], work = b4_bound(*args4, k_out,
+                                                      **first["kw"])
+    out["work"] = dict(work, recorded=int(k_out[2][0].sum()))
+    log(f"# B4, {L} pairs: kernel {out['ms']:.4f} ms (the device's own "
+        f"time; host loop {out['host_loop_ms']:.4f} ms), plain "
         f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']})")
+        f"({out['bound_by']}); {work['rows']} of the {S} x {Ps} super rows "
+        f"visited, {out['work']['recorded']} portals recorded, the longest "
+        f"walk {work['longest_walk']} steps; B4 ptxas "
+        f"{kernels.ptxas_figures('collect_pairs_kernel')}")
     dev = res.bvh.bounds.device
     tri = Tri(*(torch.as_tensor(tris[:, i], device=dev) for i in range(3)))
     mn, mx = tri.get_bbox()
@@ -735,18 +897,21 @@ def simt_by_groups(ki) -> float:
     return float(g.sum()) / float(32 * g.amax(1).sum())
 
 
-def b6_ptxas(dim: int) -> dict:
-    """ptxas' registers, frame and spills of B6's instantiations at
-    `dim`, keyed closest/any, fast/robust, with SIMT counts or not."""
+def walk_ptxas(leaf: str) -> dict:
+    """ptxas' registers, frame and spills of the walk's instantiations
+    whose leaf's mangled name holds `leaf` (B5: "TriLeaf"; B6 at dim d:
+    "SphereLeafILi<d>E"), keyed closest/any, fast/robust, with SIMT
+    counts or not."""
     from bvh_tpu_torch import kernels
 
     out = {}
-    for name, fig in kernels.ptxas_figures(
-            f"sphere_traverse_kernelILi{dim}E").items():
-        m = re.search(r"ILi\dELb(\d)ELb(\d)ELb(\d)E", name)
-        key = (("any" if m.group(1) == "1" else "closest") + "_"
-               + ("robust" if m.group(2) == "1" else "fast")
-               + ("_counts" if m.group(3) == "1" else ""))
+    for name, fig in kernels.ptxas_figures("binary_traverse_kernel").items():
+        if leaf not in name:
+            continue
+        any_hit, robust, counts = re.findall(r"Lb(\d)E", name)[:3]
+        key = (("any" if any_hit == "1" else "closest") + "_"
+               + ("robust" if robust == "1" else "fast")
+               + ("_counts" if counts == "1" else ""))
         out[key] = fig
     return out
 
@@ -883,16 +1048,14 @@ def dims_phase() -> dict:
                            10)
         ms_unsorted, last_u = time_ms(lambda: sk.sphere_traverse(
             tables, packed, **kw), 10)
-        psub = packed[:, ::SUBSET].contiguous()
         plain_ms, plast = time_ms(lambda: sk.sphere_traverse_ref(
-            tables, psub, **kw), 1)
+            tables, packed, **kw), 1)
         if not (same(last, (kf[:, order], ki[:, order]))
-                and same(last_u, (kf, ki))
-                and same(plast[0], kf[:, ::SUBSET].contiguous())):
+                and same(last_u, (kf, ki)) and same(plast, (kf, ki))):
             raise AssertionError("timed B6 output diverged")
         b_ms, b_by = sphere_bound(tables, packed, kf, ki)
         out["ms"] += ms
-        out["plain_ms"] += plain_ms * SUBSET
+        out["plain_ms"] += plain_ms
         out["bound_ms"] += b_ms
         out["bound_by"] = b_by
         # diagnostics: ns a step, SIMT efficiency (one ray a lane in
@@ -912,12 +1075,12 @@ def dims_phase() -> dict:
             simt_kernel=int(steps[0]) / (32 * int(steps[1])),
             lane_steps=int(steps[0]), warp_steps=int(steps[1]),
             warps_per_sm=kernels.sphere_traverse_occupancy(dim),
-            ptxas=b6_ptxas(dim))
+            ptxas=walk_ptxas(f"SphereLeafILi{dim}E"))
         out["per_dim"][dim] = diag
         log(f"# B6, {dim}D, {SCALE_M} spheres, {SCALE_RAYS} rays: kernel "
             f"{ms:.3f} ms in coherence order ({ms_unsorted:.3f} ms unsorted), "
             f"{SCALE_RAYS / ms / 1e3:.3f} Mrays/s; plain {plain_ms:.3f} ms "
-            f"per {psub.shape[1]} rays (x{SUBSET} = {plain_ms * SUBSET:.3f}); "
+            f"(every ray, equal to the kernel's); "
             f"bound {b_ms:.4f} ms ({b_by}); {int(hit.hit.sum())} hits; "
             f"launches {n_launch}; phase {time.perf_counter() - t_dim:.1f} s")
         log(f"# B6, {dim}D diagnostics: {inner} inner steps + {leaves} leaves"
@@ -1334,8 +1497,8 @@ def run() -> dict:
     log(f"# treelets: T={T} P={P} "
         f"top nodes={int((tl.top_node_t[12] != 0).sum())} "
         f"top_depth={tl.top_depth} wide_depth={tl.wide_depth} "
-        f"supers={tl.sup_table.shape[0]} ({time.perf_counter() - t0:.2f} s)")
-    if tl.sup_table.shape[0] != 0:
+        f"supers={tl.sup_cols.shape[0]} ({time.perf_counter() - t0:.2f} s)")
+    if tl.sup_cols.shape[0] != 0:
         raise AssertionError("the scene must have no super level")
     eye, d, up = scene_camera(tris)
     rays = primary_rays(eye, d, up, SIDE, SIDE, device=dev)
@@ -1619,7 +1782,8 @@ def run() -> dict:
     # ---- San-Miguel-class two-level render through B4 ----------------
     os.makedirs(OUT_DIR, exist_ok=True)
     b5 = cornell_cli_phase()
-    high_hit = b5_full_phase(tree, flat, rays, hit, tl)["hit"]
+    b5_262k = b5_full_phase(tree, flat, rays, hit, tl)
+    high_hit = b5_262k["hit"]
     del tl, ntl, nhit, shit, srays, spacked
     torch.cuda.empty_cache()
     b4 = two_level_phase()
@@ -1656,10 +1820,13 @@ def run() -> dict:
                 "launches_by_kernel": launches, **extra}
 
     err["b5"], err["b4"], err["b6"] = b5["err"], b4["err"], b6["err"]
-    for key, d_ in (("b5", b5), ("b4", b4), ("b6", b6)):
+    for key, d_ in (("b5", b5_262k), ("b4", b4), ("b6", b6)):
         timings[f"{key}_kernel_ms"] = d_["ms"]
         timings[f"{key}_plain_ms"] = d_["plain_ms"]
         bounds[key] = (d_["bound_ms"], d_["bound_by"])
+    device_timing = ("ms: the device's own time, queued behind a head "
+                     "start, median of 21; host_loop_ms: the mean of a "
+                     "loop of calls through the wrapper")
     return {"kernels": [
         entry(kernels.COLLECT, "bvh_tpu_torch/csrc/collect.cu",
               "bvh_tpu/traverse/collect.py:25", "b2",
@@ -1672,10 +1839,19 @@ def run() -> dict:
               launches[kernels.GROUP_BUILD.name]),
         entry(kernels.COLLECT_SUPER, "bvh_tpu_torch/csrc/collect.cu",
               "bvh_tpu/traverse/wide_treelet.py:1158", "b4",
-              b4["launches"][kernels.COLLECT_SUPER.name]),
+              b4["launches"][kernels.COLLECT_SUPER.name],
+              host_loop_ms=b4["host_loop_ms"], pairs=b4["pairs"],
+              work=b4["work"], timing=device_timing),
         entry(kernels.BINARY_TRAVERSE,
               "bvh_tpu_torch/csrc/binary_traverse.cu",
-              "bvh_tpu/traverse/pallas_kernel.py:93", "b5", b5["launches"]),
+              "bvh_tpu/traverse/pallas_kernel.py:93", "b5",
+              b5_262k["launches"], host_loop_ms=b5_262k["host_loop_ms"],
+              shape="the 262K tree, 1,048,576 primary rays, fast slab "
+              "(phase 12); launches through pallas_intersect_tris",
+              diag=b5_262k["diag"], timing=device_timing,
+              cornell={k: b5[k] for k in (
+                  "launches", "ms", "host_loop_ms", "plain_ms", "bound_ms",
+                  "bound_by", "work")}),
         entry(kernels.SPHERE_TRAVERSE,
               "bvh_tpu_torch/csrc/binary_traverse.cu",
               "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"],

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
 CUDA device: the render kernels (B1 on the column tables, B2), the
 binary traversal (B5) and the sphere traversal at dims 2, 3 and 4 (B6)
-in every mode (closest/any-hit x fast/robust), B6's work counter at
+in every mode (closest/any-hit x fast/robust), their work counter at
 ray counts around a warp and past what the card holds at once, with
-inverted rays mixed in, and its SIMT counts, phase A2 (B4) and the
-two-level render, the group build (B3) on groups that reach each of its
+inverted rays mixed in, their stacks overflowing and their SIMT
+counts, phase A2 (B4, on the super rows `sup_cols`: no pairs, one pair,
+a single-pair super, every super of a ray, stacks of 1 and 2, a
+`max_new` of 1) and the two-level render, the group build (B3) on groups that reach each of its
 branches on its warp path and its CTA path, and the profiling tools' kernels (T6 column fetch, T5 wide
 step probe, T1 B1's ablation variants). They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
@@ -74,12 +76,32 @@ def two_level(tree):
     bvh, flat, rays = tree
     tl = wt.build_wide_treelets(bvh, flat, max_prims=128, super_prims=2048,
                                 device="cuda")
-    assert tl.sup_table.shape[0] > 1
+    assert tl.sup_cols.shape[0] > 1
     return tl, rays, bvh.prim_ids.cuda()
 
 
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _ragged_rays(rays, R, inverted_every=0):
+    """R rays from `rays`, repeated as needed; every `inverted_every`th
+    with tmin > tmax (a ray that starts inactive)."""
+    reps = -(-R // rays.tmin.numel())
+    org = rays.org.repeat(reps, 1)[:R]
+    d = rays.dir.repeat(reps, 1)[:R]
+    tmin = rays.tmin.repeat(reps)[:R].clone()
+    tmax = rays.tmax.repeat(reps)[:R].clone()
+    if inverted_every:
+        tmin[::inverted_every] = 2.0
+        tmax[::inverted_every] = 1.0
+    return Ray(org.contiguous(), d.contiguous(), tmin, tmax)
+
+
+# ray counts for the refill: one lane, part of a warp, a warp and one,
+# and more than an H100 holds at once (132 SMs x 2,048 threads =
+# 270,336), not a multiple of a warp or of any grid of 128-thread CTAs
+REFILL_R = [1, 31, 33, 270_336 + 77]
 
 
 @pytest.mark.parametrize("robust", [False, True])
@@ -317,6 +339,107 @@ def test_binary_kernel_equals_plain(tree, any_hit, robust):
     assert int(torch.isfinite(gf[0]).sum()) > 100 and not gi[3].any()
 
 
+@pytest.mark.parametrize("R", REFILL_R)
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("robust", [False, True])
+def test_binary_kernel_refill(tree, R, any_hit, robust):
+    """B5's warps take rays from the work counter, again as their lanes
+    go idle, and write each result at its ray's index: every output
+    bit-equal to the plain version, with every 7th ray inverted (past
+    1,000 rays, the plain version runs on every 13th ray)."""
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    packed = wt.pack_rays(_ragged_rays(rays, R, inverted_every=7))
+    kw = dict(any_hit=any_hit, robust=robust,
+              stack_depth=required_stack_depth(bvh))
+    gf, gi = bk.binary_traverse(tables, packed, **kw)
+    sub = slice(None, None, 13 if R > 1000 else 1)
+    pf, pi = bk.binary_traverse_ref(tables, packed[:, sub].contiguous(), **kw)
+    assert torch.equal(_bits(gf[:, sub]), _bits(pf))
+    assert torch.equal(gi[:, sub], pi)
+    assert not gi[1, ::7].any() and bool(torch.isinf(gf[0, ::7]).all())
+    if R > 1000:
+        assert int(torch.isfinite(gf[0]).sum()) > 100
+
+
+def test_walk_counter_ring(tree, monkeypatch):
+    """B5's and B6's launches need no memset: each takes an unused slot
+    of its stream's ring of zeroed work counters, and a used ring is
+    zeroed again on that stream. Launches of every size, refilling (B5)
+    or not (B6 in 4D), queued in turn past a ring of 3 on two streams,
+    give the outputs of the same launch made alone."""
+    from bvh_tpu_torch.build.binned import build_binned
+    from bvh_tpu_torch.traverse import sphere_kernel as sk
+
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    kw = dict(any_hit=False, robust=False,
+              stack_depth=required_stack_depth(bvh))
+    # 4D spheres: B6's warps there take their rays once, without refill
+    rng = np.random.default_rng(7)
+    c = torch.from_numpy(rng.uniform(-1, 1, (500, 4)).astype(np.float32))
+    r = torch.from_numpy(rng.uniform(0.1, 0.3, 500).astype(np.float32))
+    c, r = c.cuda(), r.cuda()
+    sbvh = build_binned(c - r[:, None], c + r[:, None], c)
+    stables = sk.make_tables(sbvh, c, r)
+    sray = wt.pack_rays(Ray.make(
+        torch.zeros((300, 4), device="cuda"),
+        torch.from_numpy(rng.normal(size=(300, 4)).astype(np.float32)).cuda()))
+    skw = dict(any_hit=False, robust=False,
+               stack_depth=max(16, required_stack_depth(sbvh)))
+    packed = {R: wt.pack_rays(_ragged_rays(rays, R, inverted_every=7))
+              for R in REFILL_R}
+    alone = {R: bk.binary_traverse(tables, packed[R], **kw) for R in REFILL_R}
+    sphere_alone = sk.sphere_traverse(stables, sray, **skw)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(bk, "WALK_RING", 3)
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        got = []
+        with torch.cuda.stream(stream):
+            for R in REFILL_R[::-1] + REFILL_R:
+                got.append((bk.binary_traverse(tables, packed[R], **kw),
+                            alone[R]))
+                got.append((sk.sphere_traverse(stables, sray, **skw),
+                            sphere_alone))
+        stream.synchronize()
+        for g, w in got:
+            assert all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(g, w, strict=True))
+
+
+@pytest.mark.parametrize("stack_depth", [1, 2])
+def test_binary_kernel_tiny_stack(tree, stack_depth):
+    """Stacks of 1 and 2 entries: the same dropped entries and flags."""
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    kw = dict(any_hit=False, robust=False, stack_depth=stack_depth)
+    gf, gi = bk.binary_traverse(tables, wt.pack_rays(rays), **kw)
+    pf, pi = bk.binary_traverse_ref(tables, wt.pack_rays(rays), **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    assert gi[3].any()
+
+
+def test_binary_kernel_simt_counts(tree):
+    """B5's SIMT counts: its lanes' steps cover the inner steps and
+    leaves, and no more than 32 a warp step; the outputs are those of
+    the launch without counts."""
+    bvh, flat, rays = tree
+    tables = _b5_tables(bvh, flat)
+    packed = wt.pack_rays(rays)
+    kw = dict(any_hit=False, robust=False,
+              stack_depth=required_stack_depth(bvh))
+    steps = torch.zeros(2, dtype=torch.int64, device="cuda")
+    gf, gi = bk.binary_traverse(tables, packed, steps=steps, **kw)
+    pf, pi = bk.binary_traverse(tables, packed, **kw)
+    assert torch.equal(_bits(gf), _bits(pf)) and torch.equal(gi, pi)
+    lane, warp = (int(x) for x in steps)
+    assert int(gi[1].sum() + gi[2].sum()) <= lane <= 32 * warp
+    assert kernels.binary_traverse_occupancy() >= 8
+    with pytest.raises(ValueError, match="closest"):
+        bk.binary_traverse(tables, packed, steps=steps,
+                           **dict(kw, robust=True))
+
+
 def test_binary_kernel_stack_overflow_flag(tree):
     """A stack shorter than the tree's height overflows on some rays:
     kernel and plain version drop the same bottom entries and flag the
@@ -380,13 +503,106 @@ def test_collect_super_kernel_equals_plain(two_level, robust):
     prays = wt.pack_rays(rays)[:, portals.sel[rr]].contiguous()
     kw = dict(robust=robust, stack_depth=tl.sup_depth + 1, max_new=4)
     before = kernels.COLLECT_SUPER.launches
-    got = col.collect_super_pairs(tl.sup_table, sid, prays, **kw)
+    got = col.collect_super_pairs(tl.sup_cols, sid, prays, **kw)
     assert kernels.COLLECT_SUPER.launches == before + 1
     want = col.collect_super_pairs_ref(tl.sup_table, sid, prays, **kw)
-    for g, w in zip(got, want):
-        assert torch.equal(_bits(g), _bits(w))
+    _same_outputs(got, want)
     assert sid.numel() > 100 and bool((got[2][0] > 4).any())
     assert not got[2][2].any()
+
+
+def _same_outputs(got, want):
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+
+
+def _every_super_pairs(tl, rays):
+    """Every 8th ray from the 4th, of which every 7th inverted, paired
+    with every super, sorted by super as `expand_supers` hands pairs
+    over."""
+    S = tl.sup_cols.shape[0]
+    some = Ray(*(x[3::8].contiguous() for x in rays))
+    packed = wt.pack_rays(_ragged_rays(some, some.tmin.numel(),
+                                       inverted_every=7))
+    sid = torch.arange(S, device="cuda").repeat_interleave(packed.shape[1])
+    prays = packed.repeat(1, S).contiguous()
+    return sid.to(torch.int32), prays
+
+
+@pytest.mark.parametrize("case", ["no_pairs", "one_pair", "every_super",
+                                  "max_new_1"])
+@pytest.mark.parametrize("robust", [False, True])
+def test_collect_super_kernel_cases(two_level, case, robust):
+    """B4, a lane a pair, at work sizes of 0 and 1 pairs and of every
+    super a ray, with rays that start inactive, and a `max_new` of 1
+    whose counts run past the cap: every output bit-equal."""
+    tl, rays, _ = two_level
+    sid, prays = _every_super_pairs(tl, rays)
+    kw = dict(robust=robust, stack_depth=tl.sup_depth + 1, max_new=8)
+    if case == "no_pairs":
+        sid, prays = sid[:0], prays[:, :0].contiguous()
+    elif case == "one_pair":
+        sid, prays = sid[5:6], prays[:, 5:6].contiguous()
+    elif case == "max_new_1":
+        kw["max_new"] = 1
+    got = col.collect_super_pairs(tl.sup_cols, sid, prays, **kw)
+    want = col.collect_super_pairs_ref(tl.sup_table, sid, prays, **kw)
+    _same_outputs(got, want)
+    if case == "every_super":
+        assert not got[2][0][prays[6] > prays[7]].any()
+        assert bool((got[2][0] > 0).any()) and not got[2][2].any()
+    if case == "max_new_1":
+        assert bool((got[2][0] > 1).any())
+
+
+@pytest.mark.parametrize("stack_depth", [1, 2])
+def test_collect_super_kernel_stack_overflow(two_level, stack_depth):
+    """Stacks of 1 and 2 entries, where the pairs need more than 1: kernel
+    and plain version drop the same bottom entries and give the same
+    flags and high-water marks, which overflow where the full stack's
+    mark passes theirs."""
+    tl, rays, _ = two_level
+    sid, prays = _every_super_pairs(tl, rays)
+    kw = dict(robust=False, stack_depth=stack_depth, max_new=16)
+    got = col.collect_super_pairs(tl.sup_cols, sid, prays, **kw)
+    want = col.collect_super_pairs_ref(tl.sup_table, sid, prays, **kw)
+    _same_outputs(got, want)
+    need = col.collect_super_pairs(tl.sup_cols, sid, prays, **dict(
+        kw, stack_depth=tl.sup_depth + 1))[2][1]
+    assert int(need.max()) > 1 and int(got[2][1].max()) <= stack_depth
+    assert torch.equal(got[2][2] != 0, need > stack_depth)
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_collect_super_kernel_single_pair_super(robust):
+    """A super of one pair row, both children portals (treelets 3 and
+    7), among supers of zeros: rays through the left box, the right box,
+    both and neither."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    S, Ps = 3, 128
+    cols = torch.zeros((S, Ps, 16))
+    cols[1, 0, :6] = torch.tensor([-1.0, 0.0, -1, 1, -1, 1])
+    cols[1, 0, 6:12] = torch.tensor([0.0, 1.0, -1, 1, -1, 1])
+    cols[1, 0, 12] = float(3 << 4 | 1)
+    cols[1, 0, 13] = float(7 << 4 | 1)
+    y = torch.linspace(-2, 2, 64)
+    org = torch.stack([torch.full_like(y, -0.5), y, torch.zeros_like(y)], 1)
+    org = torch.cat([org, torch.tensor([[-5.0, 0.0, 0.0]])])
+    d = torch.zeros_like(org)
+    d[:64, 2] = 1.0
+    d[64, 0] = 1.0
+    org[:64, 2] = -5.0
+    packed = wt.pack_rays(Ray.make(org, d)).cuda()
+    sid = torch.full((65,), 1, dtype=torch.int32, device="cuda")
+    kw = dict(robust=robust, stack_depth=2, max_new=4)
+    cols = cols.cuda()
+    got = col.collect_super_pairs(cols, sid, packed, **kw)
+    want = col.collect_super_pairs_ref(cols.transpose(1, 2), sid, packed,
+                                       **kw)
+    _same_outputs(got, want)
+    assert set(got[0][0].tolist()) == {-1, 3}
+    assert got[0][:2, 64].tolist() == [3, 7]
 
 
 @pytest.mark.parametrize("any_hit, robust", [(False, False), (True, False),
@@ -400,7 +616,7 @@ def test_two_level_render_equals_plain_render(two_level, any_hit, robust):
     assert kernels.COLLECT_SUPER.launches > before and diag["a2_rounds"] > 0
     want = wt._intersect(tl, rays, prim_ids, col.collect_portals_ref,
                          wt.traverse_pairs_plain,
-                         collect_super=col.collect_super_pairs_ref, **kw)
+                         collect_super=col.collect_super_pairs_plain, **kw)
     for f in ("t", "u", "v", "prim_pos", "prim_id"):
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
     assert 0 < int(torch.isfinite(got.t).sum()) < rays.tmin.numel()
@@ -475,26 +691,6 @@ def test_sphere_kernel_stack_one_short(spheres):
     assert gi[3].any()
     with pytest.raises(ValueError, match="overflow"):
         sk.pallas_intersect_spheres(bvh, c, r, rays, stack_depth=need - 1)
-
-
-def _ragged_rays(rays, R, inverted_every=0):
-    """R rays from `rays`, repeated as needed; every `inverted_every`th
-    with tmin > tmax (a ray that starts inactive)."""
-    reps = -(-R // rays.tmin.numel())
-    org = rays.org.repeat(reps, 1)[:R]
-    d = rays.dir.repeat(reps, 1)[:R]
-    tmin = rays.tmin.repeat(reps)[:R].clone()
-    tmax = rays.tmax.repeat(reps)[:R].clone()
-    if inverted_every:
-        tmin[::inverted_every] = 2.0
-        tmax[::inverted_every] = 1.0
-    return Ray(org.contiguous(), d.contiguous(), tmin, tmax)
-
-
-# ray counts for the refill: one lane, part of a warp, a warp and one,
-# and more than an H100 holds at once (132 SMs x 2,048 threads =
-# 270,336), not a multiple of a warp or of any grid of 128-thread CTAs
-REFILL_R = [1, 31, 33, 270_336 + 77]
 
 
 @pytest.mark.parametrize("R", REFILL_R)

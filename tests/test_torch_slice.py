@@ -27,6 +27,7 @@ from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
 from bvh_tpu_torch.io.scenes import scene_camera, sponza_class
 from bvh_tpu_torch.io.serialize import deserialize_from_bytes, serialize_to_bytes
+from bvh_tpu_torch.traverse import binary_kernel as bk
 from bvh_tpu_torch.traverse import collect as tcol
 from bvh_tpu_torch.traverse import wide_treelet as twt
 
@@ -148,3 +149,22 @@ def test_dispatchers_refuse_other_devices():
         twt.traverse_pairs(torch.empty((1, 128, 64), device="meta"),
                            torch.empty(4, dtype=torch.int32, device="meta"),
                            meta, any_hit=False, robust=False, stack_depth=8)
+
+
+@pytest.mark.parametrize("kernel", ["b4", "b5"])
+def test_b4_b5_dispatchers_refuse_other_devices(kernel):
+    """Kernels B4 and B5 take CUDA tensors or, on the CPU, their plain
+    versions: a tensor on another device is refused, not moved."""
+    meta = torch.empty((8, 4), device="meta")
+    if kernel == "b4":
+        with pytest.raises(ValueError, match="unsupported device"):
+            tcol.collect_super_pairs(
+                torch.empty((2, 128, 16), device="meta"),
+                torch.empty(4, dtype=torch.int32, device="meta"), meta,
+                robust=False, stack_depth=4, max_new=8)
+    else:
+        tables = bk.BinaryTables(torch.empty((4, 16), device="meta"),
+                                 torch.empty((4, 12), device="meta"), 16)
+        with pytest.raises(ValueError, match="CUDA device"):
+            bk.binary_traverse(tables, meta, any_hit=False, robust=False,
+                               stack_depth=4)

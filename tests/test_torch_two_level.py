@@ -3,7 +3,8 @@ and the treelets) in the port against bvh_tpu, on the fixture of
 tests/test_torch_wide_treelet.py (sponza_class(3000, 3), MEDIUM tree,
 32x32 primary rays) cut at max_prims=128, super_prims=512:
 
-- phase A2 (kernel B4): `collect_super_pairs`' plain version against
+- phase A2 (kernel B4): `collect_super_pairs`' plain version, on the
+  [S, 16, Ps] view `sup_table` of the stored rows `sup_cols`, against
   bvh_tpu's `_phase_a2(interpret=True)` on the same (ray, super) pairs;
 - the whole two-level render of the port's plain versions against
   bvh_tpu's `wide_treelet_intersect_tris(interpret=True)`, closest,
@@ -108,7 +109,7 @@ def test_a2_matches_pallas(scene, two_level, robust):
     assert sid.numel() > 100
     max_new = 4
     want = _pallas_a2(two_level["jtl"], sid, rays, robust, max_new)
-    ntid, nt, stats = tcol.collect_super_pairs(
+    ntid, nt, stats = tcol.collect_super_pairs_ref(
         two_level["ttl"].sup_table, sid, rays, robust=robust,
         stack_depth=two_level["ttl"].sup_depth + 1, max_new=max_new)
     assert np.array_equal(ntid.numpy(), want[0])
@@ -142,7 +143,7 @@ def test_a2_fast_matches_with_fma_rounding(scene, two_level, monkeypatch):
     want = _pallas_a2(two_level["jtl"], sid, rays, False, 16)
     monkeypatch.setattr(tcol, "slab_planes", fma_planes)
     ntid, nt, stats = tcol.collect_super_pairs(
-        two_level["ttl"].sup_table, sid, rays, robust=False,
+        two_level["ttl"].sup_cols, sid, rays, robust=False,
         stack_depth=two_level["ttl"].sup_depth + 1, max_new=16)
     assert np.array_equal(ntid.numpy(), want[0])
     assert nt.numpy().tobytes() == want[1].tobytes()

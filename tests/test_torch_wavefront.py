@@ -152,19 +152,49 @@ def test_b5_plain_without_fma_rounding(cornell, reference, any_hit, robust):
 
 
 def test_b5_tables_and_caps(cornell):
-    """The tables hold integer words; the golden tree fits the
-    reference's caps and its stack is sized by its height."""
+    """The tables hold one 64-byte row a pair, its words as integer
+    bits; the golden tree fits the reference's caps and its stack is
+    sized by its height."""
     tbvh = cornell["tbvh"]
     _, tflat = _flat(cornell, False)
     tables = bk.make_tables(tbvh, tflat)
-    assert tables.node_w.dtype == torch.int32
+    P = tables.pairs.shape[0]
+    assert tables.pairs.shape == (P, 16) and tables.pairs.is_contiguous()
     assert tables.root_word == int(tbvh.index[0])
-    assert torch.equal(tables.node_w[:, 0].long(),
-                       tbvh.index[1:2 * tables.node_w.shape[0]:2])
+    words = tables.pairs[:, 12:14].view(torch.int32).long()
+    assert torch.equal(words[:, 0], tbvh.index[1:2 * P:2])
+    assert torch.equal(tables.pairs[:, 14:].view(torch.int32),
+                       torch.zeros((P, 2), dtype=torch.int32))
+    assert torch.equal(tables.pairs[:, :6], tbvh.bounds[1:2 * P:2])
     assert bk.pallas_fits(tbvh, tflat)
     assert required_stack_depth(tbvh) == max(8, max_depth(tbvh) + 1)
     assert not bk.pallas_fits(tbvh._replace(
         index=torch.zeros(4096, dtype=torch.int64)), tflat)
+
+
+def test_b5_check_refuses_old_layouts(cornell):
+    """B5's kernel takes the [P, 16] pair rows and 16-byte aligned
+    [n, 12] triangles: the earlier [P, 12] box table, a strided or misaligned
+    row table and 3D rays of the wrong width are refused."""
+    tbvh = cornell["tbvh"]
+    _, tflat = _flat(cornell, False)
+    tables = bk.make_tables(tbvh, tflat)
+    rays = torch.zeros((8, 5))
+    kw = dict(leaf_width=12, dim=3, stack_depth=16)
+    bk.check_walk_inputs("t", tables.pairs, tables.tris, rays=rays, **kw)
+    node_b, node_w, _ = bk.pair_tables(tbvh)
+    misaligned = torch.zeros(tables.tris.numel() + 1)[1:].view(
+        tables.tris.shape)
+    for pairs, tris, r in ((node_b, tables.tris, rays),
+                           (tables.pairs[::2], tables.tris, rays),
+                           (tables.pairs, misaligned, rays),
+                           (tables.pairs, tables.tris[:, :9], rays),
+                           (tables.pairs, tables.tris, rays[:7])):
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            bk.check_walk_inputs("t", pairs, tris, rays=r, **kw)
+    with pytest.raises(ValueError, match="stack depth"):
+        bk.check_walk_inputs("t", tables.pairs, tables.tris, rays=rays,
+                             **dict(kw, stack_depth=129))
 
 
 def test_wavefront_stack_overflow_raises(cornell):
