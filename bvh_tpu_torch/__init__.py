@@ -1,8 +1,9 @@
 """bvh_tpu_torch — the PyTorch and CUDA port of `bvh_tpu`.
 
 The package mirrors `bvh_tpu`'s layout (core, geom, io, api, cli,
-build, traverse), so each module's counterpart is found under the same
-name. Plain tensor code is PyTorch; the hot kernels (the per-group
+build, traverse, par, and the examples), so each module's counterpart
+is found under the same name; `par` scales traversal and the mini-tree
+build over the ranks of a torch.distributed process group. Plain tensor code is PyTorch; the hot kernels (the per-group
 binned-SAH build; the wide-treelet render's phase-A portal collect, its
 phase-A2 super expansion and 8-wide treelet traversal; the single-launch
 binary traversal) are hand-written CUDA under `csrc/`, built at first

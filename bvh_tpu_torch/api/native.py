@@ -35,6 +35,19 @@ class BuildConfigC(ctypes.Structure):
     ]
 
 
+# bool (*)(void* user_data, float* ray, size_t begin, size_t end): the
+# leaf callback of the intersect calls; `ray` is the (org, dir, tmin,
+# tmax) record, whose tmax the callback may shorten (c_api/bvh.h:64-77).
+CALLBACK3F = ctypes.CFUNCTYPE(
+    ctypes.c_bool, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+    ctypes.c_size_t, ctypes.c_size_t,
+)
+
+
+class Callback3f(ctypes.Structure):
+    _fields_ = [("user_data", ctypes.c_void_p), ("user_fn", CALLBACK3F)]
+
+
 def library_path() -> str:
     """Path of the built library; compiles it on first use."""
     return build_shared_library(
@@ -54,9 +67,20 @@ def load_library():
         ctypes.POINTER(BuildConfigC),
     ]
     lib.bvh3f_destroy.argtypes = [ctypes.c_void_p]
-    lib.bvh3f_get_node_count.restype = ctypes.c_size_t
-    lib.bvh3f_get_node_count.argtypes = [ctypes.c_void_p]
     lib.bvh3f_save.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.bvh3f_load.restype = ctypes.c_void_p
+    lib.bvh3f_load.argtypes = [ctypes.c_void_p]
+    for name in ("node_count", "prim_count"):
+        fn = getattr(lib, f"bvh3f_get_{name}")
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [ctypes.c_void_p]
+    lib.bvh3f_get_prim_id.restype = ctypes.c_size_t
+    lib.bvh3f_get_prim_id.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    lib.bvh3f_refit.argtypes = [ctypes.c_void_p]
+    lib.bvh3f_optimize.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    for suffix in ("", "_robust", "_any", "_any_robust"):
+        getattr(lib, f"bvh3f_intersect_ray{suffix}").argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(Callback3f)]
     return lib
 
 
@@ -69,7 +93,8 @@ def _libc():
 
 
 class NativeBvh3f:
-    """Minimal wrapper over the bvh3f_* surface."""
+    """Minimal wrapper over the bvh3f_* surface (the refit, optimize and
+    intersect calls are bound on `lib`)."""
 
     def __init__(self, lib=None):
         self.lib = lib or load_library()
@@ -104,6 +129,17 @@ class NativeBvh3f:
         finally:
             libc.fclose(f)
 
+    def load(self, path: str):
+        """A handle to the tree in the v2 file at `path`."""
+        libc = _libc()
+        f = libc.fopen(path.encode(), b"rb")
+        if not f:
+            raise OSError(f"cannot open {path} for reading")
+        try:
+            return self.lib.bvh3f_load(f)
+        finally:
+            libc.fclose(f)
+
     def to_bytes(self, handle) -> bytes:
         """The tree's v2 bytes."""
         with tempfile.TemporaryDirectory() as d:
@@ -117,3 +153,58 @@ class NativeBvh3f:
 
     def node_count(self, handle) -> int:
         return self.lib.bvh3f_get_node_count(handle)
+
+    def prim_ids(self, handle) -> np.ndarray:
+        n = self.lib.bvh3f_get_prim_count(handle)
+        return np.asarray([self.lib.bvh3f_get_prim_id(handle, i)
+                           for i in range(n)])
+
+    def intersect_closest(self, handle, org, dir, tris, robust=True):  # noqa: A002 - matches reference
+        """Closest hit of one ray through the native traversal, with a
+        Python leaf callback over the triangles `tris` [n, 3, 3] by prim
+        id (bvh_tpu/api/native.py:139-183): (prim position, t), or
+        (-1, inf) on a miss."""
+        state = {"prim": -1, "t": np.inf}
+        prim_ids = self.prim_ids(handle)
+        tris = np.asarray(tris)
+
+        def tri_hit(p0, e1, e2, nrm, o, d, tmin, tmax):
+            c = p0 - o
+            r = np.cross(d, c)
+            det = float(np.dot(nrm, d))
+            if det == 0:
+                return None
+            inv = 1.0 / det
+            u = float(np.dot(r, e2)) * inv
+            v = float(np.dot(r, e1)) * inv
+            w = 1.0 - u - v
+            eps = -np.finfo(np.float32).eps
+            if u >= eps and v >= eps and w >= eps:
+                t = float(np.dot(nrm, c)) * inv
+                if tmin <= t <= tmax:
+                    return t
+            return None
+
+        @CALLBACK3F
+        def cb(_user, ray_ptr, begin, end):
+            ray = np.ctypeslib.as_array(ray_ptr, shape=(8,))
+            hit_any = False
+            for i in range(begin, end):
+                tri = tris[prim_ids[i]]
+                t = tri_hit(tri[0], tri[0] - tri[1], tri[2] - tri[0],
+                            np.cross(tri[0] - tri[1], tri[2] - tri[0]),
+                            ray[0:3], ray[3:6], ray[6], ray[7])
+                if t is not None:
+                    state["prim"] = i
+                    state["t"] = t
+                    ray[7] = t
+                    hit_any = True
+            return hit_any
+
+        ray = np.asarray([*org, *dir, 0.0, np.finfo(np.float32).max],
+                         np.float32)
+        callback = Callback3f(None, cb)
+        fn = (self.lib.bvh3f_intersect_ray_robust if robust
+              else self.lib.bvh3f_intersect_ray)
+        fn(handle, ray.ctypes.data_as(ctypes.c_void_p), ctypes.byref(callback))
+        return state["prim"], state["t"]

@@ -84,13 +84,16 @@ def init_state(bboxes_min, bboxes_max, min_leaf_size: int) -> FrontierState:
 
 
 def init_forest(bboxes_min, bboxes_max, order, group_begin, group_end,
-                min_leaf_size: int, node_capacity: int) -> FrontierState:
+                min_leaf_size: int, node_capacity: int,
+                force_closed=None) -> FrontierState:
     """A forest of root segments (bvh_tpu frontier.py:93-161): root g owns
     positions [group_begin[g], group_end[g]) of `order`, so that all
     mini-trees of the mini-tree build (mini_tree_builder.h:105-139) grow
     in one level-synchronous loop. Roots of 1..min_leaf_size prims are
     leaves; empty groups (begin == end) are closed roots of empty boxes
-    that nothing references."""
+    that nothing references. Roots marked in `force_closed` [g_cap]
+    never open (the padding group of a rank's share,
+    par/minitree_sharded.py)."""
     n, dim = bboxes_min.shape
     dev = bboxes_min.device
     g_cap = group_begin.shape[0]
@@ -125,6 +128,8 @@ def init_forest(bboxes_min, bboxes_max, order, group_begin, group_end,
     index = torch.where(leaf_now, Index.make_leaf(begin.clamp(min=0),
                                                   sizes.clamp(min=1)), 0)
     open_ = is_root & (sizes > min_leaf_size)
+    if force_closed is not None:
+        open_[:g_cap] &= ~force_closed
     return FrontierState(order=order.to(_I64), seg=gid, bounds=bounds,
                          index=index, begin=begin, end=end, open_=open_,
                          node_count=torch.tensor(g_cap, dtype=_I64,

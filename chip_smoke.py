@@ -117,7 +117,22 @@ exits non-zero):
    iteration of all 12 configs and one that fills the card, and the
    glue's sorts and gathers at 1M rows; T1: on the chain table B1, its
    plain version and each ablation variant equal on every lane with
-   active steps = depth, then each variant's cost per step.
+   active steps = depth, then each variant's cost per step;
+18. `par/` on two gloo ranks spawned on the one card (NCCL refuses two
+   ranks on one card; gloo takes device tensors, copying them through
+   the host itself): `ParallelExecutor(mesh).reduce` of the
+   centres equals amin/amax; `build_minitree_sharded` at
+   `MiniTreeConfig()` on the 262K scene, stage by stage (pre-pass,
+   phase A, phase B, gather, glue; CUDA events, the collectives' count,
+   bytes and host time), equal bit for bit to `build_minitree` on the
+   card (rank 0), the same digest on both ranks, the tree's invariants;
+   `intersect_tris_sharded` of all 1,048,576 primary rays and of
+   1,048,573 equal to `intersect_tris` in t, u, v and prim id (every
+   4th ray if the single traversal takes over 60 s); then the two port
+   examples as subprocesses on the card and with `--device cpu` (rc 0,
+   the same line), and the native bindings on tests/golden's tree
+   (every 16th golden ray's closest hit). Its results print on a JSON
+   line `{"par": ...}` before the kernels line.
 
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
@@ -138,6 +153,7 @@ the script exits 1 and prints no result. PPMs go to chiprun_out/.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -199,6 +215,12 @@ F64_CHECK = 256  # every 256th ray against the brute-force minimum
 # launches whose median each T1 time is (a launch is 0.05-0.4 ms, so
 # the tool's 5 leave its per-step difference noisy)
 T1_B, T1_P, T1_REPS = 1024, 384, 21
+# Phase 18: par/ on gloo ranks that share the card (NCCL refuses two
+# ranks on one card), a ray count they do not divide, and the plain
+# wavefront's time past which the traversal check takes every 4th ray
+PAR_RANKS = 2
+PAR_ODD_RAYS = SIDE * SIDE - 3
+PAR_WAVEFRONT_BUDGET_S = 60.0
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 DEV = "cuda"
@@ -1377,6 +1399,256 @@ def tool_kernels_phase() -> dict:
     return out
 
 
+def digest(*ts) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_rank(rank: int, world: int, work: str, n_tris: int,
+             side: int) -> None:
+    """One rank of phase 18 on cuda:0: the executor's bounds, the sharded
+    build stage by stage against the single build, and the sharded
+    traversal against the single one; results to work/rank<r>.json.
+    Rank 0 runs the single-device references while the others wait."""
+    import torch.distributed as dist
+
+    from bvh_tpu_torch.build.minitree import MiniTreeConfig, build_minitree
+    from bvh_tpu_torch.cli.camera import primary_rays
+    from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
+    from bvh_tpu_torch.io.scenes import scene_camera, sponza_class
+    from bvh_tpu_torch.par import intersect_tris_sharded, make_mesh
+    from bvh_tpu_torch.par import minitree_sharded as ms
+    from bvh_tpu_torch.par.executor import ParallelExecutor
+    from bvh_tpu_torch.par.mesh import Mesh
+    from bvh_tpu_torch.traverse.stack import required_stack_depth
+    from bvh_tpu_torch.traverse.wavefront import intersect_tris
+
+    comm = {"calls": 0, "bytes": 0, "ms": 0.0}
+
+    class TimedMesh(Mesh):
+        """The mesh, with each collective's host time (synchronised
+        before and after) and the bytes it delivers to this rank."""
+
+        def _timed(self, fn, x):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(x)
+            sync()
+            comm["calls"] += 1
+            comm["bytes"] += out.numel() * out.element_size()
+            comm["ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def all_gather(self, x):
+            return self._timed(super().all_gather, x)
+
+        def all_sum(self, x):
+            return self._timed(super().all_sum, x)
+
+    def staged(fn):
+        """fn()'s CUDA-event ms, and its collectives' count, bytes and
+        host ms."""
+        before = dict(comm)
+        ms_, out = events_ms(fn)
+        return out, dict(ms=ms_, calls=comm["calls"] - before["calls"],
+                         bytes=comm["bytes"] - before["bytes"],
+                         comm_ms=comm["ms"] - before["ms"])
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        rank=rank, world_size=world)
+    try:
+        base = make_mesh(world, device=torch.device(DEV, 0))
+        mesh = TimedMesh(base.rank, base.size, base.axis, base.device)
+        dev = mesh.device
+        res = {"rank": rank, "device": str(dev)}
+
+        tris = sponza_class(n_tris, seed=0)
+        mn, mx, cc = (torch.from_numpy(a).to(dev) for a in (
+            tris.min(axis=1), tris.max(axis=1), tris.mean(axis=1)))
+        big = torch.finfo(cc.dtype).max
+        ex_ms, (emn, emx) = events_ms(lambda: ParallelExecutor(mesh).reduce(
+            (cc, cc), lambda a, b: (torch.minimum(a[0], b[0]),
+                                    torch.maximum(a[1], b[1])),
+            (cc.new_full((3,), big), cc.new_full((3,), -big))))
+        res["executor_bounds_exact"] = bool(
+            torch.equal(emn, cc.amin(0)) and torch.equal(emx, cc.amax(0)))
+        res["executor_ms"] = ex_ms
+
+        cfg = MiniTreeConfig()
+        ms.build_minitree_sharded(mn, mx, cc, mesh, cfg)  # first use
+        stages = {}
+        plan, stages["prepass"] = staged(
+            lambda: ms._prepass(mn, mx, cc, mesh, cfg, None))
+        forest, stages["phase_a"] = staged(lambda: ms._phase_a(plan, cfg))
+        block, stages["phase_b"] = staged(
+            lambda: ms._phase_b(forest, plan, mesh, cfg))
+        gathered, stages["gather"] = staged(lambda: ms._gather(block, mesh))
+        tree, stages["glue"] = staged(lambda: ms._glue(gathered, plan, cfg))
+        stages["total_ms"] = sum(v["ms"] for v in stages.values())
+        res.update(stages=stages, share=int(plan.dlen[rank]),
+                   nodes=tree.node_count, tree_checks=tree_checks(
+                       tree, n_tris),
+                   digest=digest(tree.bounds[:tree.node_count],
+                                 tree.index[:tree.node_count],
+                                 tree.prim_ids))
+
+        tt = torch.from_numpy(tris).to(dev)
+        flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1],
+                                           tt[:, 2])).as_flat()
+        eye, d, up = scene_camera(tris)
+        rays = primary_rays(eye, d, up, side, side, device=dev)
+        kw = dict(stack_depth=required_stack_depth(tree))
+        stride = torch.ones(1, dtype=torch.int64)
+        if rank == 0:
+            single_ms, single = events_ms(
+                lambda: build_minitree(mn, mx, cc, cfg))
+            nc = single.node_count
+            res["single_build_ms"] = single_ms
+            res["equal_to_single_build"] = bool(
+                nc == tree.node_count
+                and same((single.bounds[:nc], single.index[:nc],
+                          single.prim_ids),
+                         (tree.bounds[:nc], tree.index[:nc], tree.prim_ids))
+                and single.prim_count == tree.prim_count)
+            trace_ms, hit = events_ms(lambda: intersect_tris(single, flat,
+                                                             rays, **kw))
+            res["single_traversal_ms"] = trace_ms
+            if trace_ms > PAR_WAVEFRONT_BUDGET_S * 1e3:
+                stride[0] = 4
+        dist.broadcast(stride, 0)
+        step = int(stride[0])
+        res["ray_stride"] = step
+        sub = type(rays)(*(x[::step] for x in rays))
+        res["traversal"] = {}
+        for n in (sub.tmin.shape[0], (PAR_ODD_RAYS + step - 1) // step):
+            part = type(rays)(*(x[:n] for x in sub))
+            got, st = staged(lambda: intersect_tris_sharded(
+                tree, flat, part, mesh, **kw))
+            entry = dict(rays=n, stage=st, hits=int(got.hit.sum()))
+            if rank == 0:
+                entry["equal_to_single"] = all(
+                    same(getattr(got, k), getattr(hit, k)[::step][:n])
+                    for k in ("t", "u", "v", "prim_id"))
+            res["traversal"][str(n)] = entry
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def par_phase() -> dict:
+    """Phase 18: par/ on PAR_RANKS gloo ranks that share the card
+    (`par_rank`), the two port examples as subprocesses on the card and
+    on the CPU, and the port's native bindings on the golden tree."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from bvh_tpu_torch.api.native import NativeBvh3f
+
+    t0 = time.perf_counter()
+    work = os.path.join(OUT_DIR, "par")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mp.spawn(par_rank, args=(PAR_RANKS, work, N_TRIS, SIDE),
+             nprocs=PAR_RANKS, join=True)
+    outs = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    card = card_line()
+    r0 = outs[0]
+    log(f"# phase 18, {PAR_RANKS} gloo ranks on one card ({card}), the "
+        f"collectives on device tensors")
+    log(f"#   single build_minitree {r0['single_build_ms']:.3f} ms (CUDA "
+        f"events, {N_TRIS} prims); sharded build equal: "
+        f"{r0['equal_to_single_build']}; digests "
+        f"{sorted({o['digest'][:16] for o in outs})}")
+    for o in outs:
+        log(f"#   rank {o['rank']}: share {o['share']} prims, "
+            f"{o['nodes']} nodes, executor bounds exact "
+            f"{o['executor_bounds_exact']} ({o['executor_ms']:.3f} ms); "
+            f"stages (CUDA-event ms; collectives, their bytes and host "
+            f"ms): " + ", ".join(
+                f"{k} {v['ms']:.3f} ({v['calls']}, {v['bytes']}, "
+                f"{v['comm_ms']:.3f})"
+                for k, v in o["stages"].items() if k != "total_ms")
+            + f"; sum {o['stages']['total_ms']:.3f}")
+        for n, e in o["traversal"].items():
+            log(f"#   rank {o['rank']}: intersect_tris_sharded of {n} rays "
+                + (f"(every {o['ray_stride']}th) " if o["ray_stride"] > 1
+                   else "") + f"{e['stage']['ms']:.3f} ms, "
+                f"with its {e['stage']['calls']} gathers "
+                f"({e['stage']['bytes']} bytes, {e['stage']['comm_ms']:.3f} "
+                f"ms); hits {e['hits']}"
+                + (f"; equal to single: {e['equal_to_single']}"
+                   if "equal_to_single" in e else ""))
+    log(f"#   single intersect_tris of all {SIDE * SIDE} rays "
+        f"{r0['single_traversal_ms']:.3f} ms (CUDA events)"
+        + (f"; past {PAR_WAVEFRONT_BUDGET_S:.0f} s, so the sharded check "
+           f"took every {r0['ray_stride']}th ray" if r0["ray_stride"] > 1
+           else ""))
+    inv = r0["tree_checks"]
+    ok = (r0["equal_to_single_build"]
+          and len({o["digest"] for o in outs}) == 1
+          and all(o["executor_bounds_exact"] for o in outs)
+          and all(e["equal_to_single"] for e in r0["traversal"].values())
+          and inv["prims_once"] and inv["leaves_tile"] and inv["pairs_ok"]
+          and inv["inner_exact"])
+    if not ok:
+        raise AssertionError("phase 18: the sharded paths differ from the "
+                             "single-device ones")
+
+    examples = {}
+    for name in ("simple_example", "serialize_roundtrip"):
+        path = os.path.join(HERE, "bvh_tpu_torch", "examples", f"{name}.py")
+        runs = [subprocess.run([sys.executable, path, *extra],
+                               capture_output=True, text=True, timeout=300)
+                for extra in ((), ("--device", "cpu"))]
+        examples[name] = runs[0].stdout.strip()
+        log(f"# example {name}: card rc {runs[0].returncode} "
+            f"{runs[0].stdout.strip()!r}; cpu rc {runs[1].returncode} "
+            f"{runs[1].stdout.strip()!r}")
+        if any(r.returncode for r in runs) or runs[0].stdout != runs[1].stdout:
+            raise AssertionError(f"example {name} failed or differs from "
+                                 f"its CPU run: {runs[0].stderr[-400:]}")
+
+    native = NativeBvh3f()
+    golden = os.path.join(HERE, "tests", "golden")
+    cornell = np.fromfile(os.path.join(golden, "tris.bin"),
+                          np.float32).reshape(-1, 3, 3)
+    hits = np.fromfile(os.path.join(golden, "cornell_hits.bin"), np.dtype(
+        [("prim_id", np.uint32), ("t", np.float32), ("u", np.float32),
+         ("v", np.float32)]))
+    h = native.load(os.path.join(golden, "cornell_sweep.bvh"))
+    nodes = native.node_count(h)
+    eye = np.asarray([0.0, 1.0, 2.0], np.float32)
+    d = np.asarray([0.0, 0.0, -1.0], np.float32)
+    right = np.cross(d, np.asarray([0.0, 1.0, 0.0], np.float32))
+    right /= np.linalg.norm(right)
+    up = np.cross(right, d)
+    bad = 0
+    for idx in range(0, 64 * 64, 16):
+        u = 2.0 * (idx % 64) / 64 - 1.0
+        v = 2.0 * (idx // 64) / 64 - 1.0
+        prim, t = native.intersect_closest(h, eye, d + u * right + v * up,
+                                           cornell)
+        want = hits["prim_id"][idx]
+        bad += int((prim != -1) != (want != 0xFFFFFFFF) or (
+            prim != -1 and abs(t - hits["t"][idx]) > 1e-5 * hits["t"][idx]))
+    native.destroy(h)
+    log(f"# native golden tree: {nodes} nodes; closest hits of 256 golden "
+        f"rays, {bad} differ from the goldens")
+    if bad or nodes != 37:
+        raise AssertionError("the native closest hits differ from the goldens")
+    log(f"# phase 18 in {time.perf_counter() - t0:.1f} s")
+    return dict(card=card, ranks=outs, examples=examples, native_bad=bad)
+
+
 def run() -> dict:
     from bvh_tpu_torch import kernels
     from bvh_tpu_torch.api.native import NativeBvh3f
@@ -1796,6 +2068,19 @@ def run() -> dict:
 
     # ---- 17. the profiling tools' kernels T6, T5, T1 --------------------
     t17 = tool_kernels_phase()
+
+    # ---- 18. par/ on two gloo ranks, the examples, the native bindings --
+    torch.cuda.empty_cache()
+    par = par_phase()
+    print(json.dumps({"par": {
+        "card": par["card"], "examples": par["examples"],
+        "native_golden_rays_differing": par["native_bad"],
+        "ranks": [{k: o[k] for k in (
+            "rank", "device", "share", "nodes", "stages", "traversal",
+            "executor_ms")} | {
+            k: o[k] for k in ("single_build_ms", "single_traversal_ms",
+                              "ray_stride", "equal_to_single_build")
+            if k in o} for o in par["ranks"]]}}), flush=True)
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n, **extra):

@@ -29,7 +29,7 @@ from bvh_tpu_torch.build.canonicalize import canonicalize, extract_bvh
 from bvh_tpu_torch.build.sweep import build_sweep
 from bvh_tpu_torch.core import utils
 from bvh_tpu_torch.core.types import bvh_from_numpy
-from bvh_tpu_torch.traverse import refit as trefit
+from bvh_tpu_torch.traverse.refit import compute_parents, leaf_of_position, refit
 
 from helpers import check_bvh_invariants, scene_arrays
 
@@ -143,12 +143,12 @@ def test_canonicalize_and_refit_match(sweeps):
     assert same_tree(jc, tc) and tc.node_count < tbvh.node_count
     assert same_tree(j_extract_bvh(jbvh, 5), extract_bvh(tbvh, 5))
     # refit of the pruned tree, inner bounds only and from prim boxes
-    assert same_tree(j_refit(jc), trefit.refit(tc))
+    assert same_tree(j_refit(jc), refit(tc))
     mn, mx = arrays[0], arrays[1]
     assert same_tree(
         j_refit(jc, jnp.asarray(mn), jnp.asarray(mx)),
-        trefit.refit(tc, torch.from_numpy(mn), torch.from_numpy(mx)))
-    assert np.array_equal(trefit.compute_parents(tc).numpy(),
+        refit(tc, torch.from_numpy(mn), torch.from_numpy(mx)))
+    assert np.array_equal(compute_parents(tc).numpy(),
                           np.asarray(j_compute_parents(jc)))
-    assert np.array_equal(trefit.leaf_of_position(tc).numpy(),
+    assert np.array_equal(leaf_of_position(tc).numpy(),
                           np.asarray(j_leaf_of_position(jc)))

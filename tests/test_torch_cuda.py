@@ -8,7 +8,7 @@ counts, phase A2 (B4, on the super rows `sup_cols`: no pairs, one pair,
 a single-pair super, every super of a ray, stacks of 1 and 2, a
 `max_new` of 1) and the two-level render, the group build (B3) on groups that reach each of its
 branches on its warp path and its CTA path, and the profiling tools' kernels (T6 column fetch, T5 wide
-step probe, T1 B1's ablation variants). They skip where there is no device. The repository's conftest imports jax, which
+step probe, T1 B1's ablation variants), and the sharded mini-tree build on two gloo ranks that share the card. They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -831,3 +831,37 @@ def test_ablation_variant_equals_ablated_plain(scene, variant):
                                  ablate=variant)
     assert torch.equal(_bits(got[0]), _bits(want[0]))
     assert torch.equal(got[1], want[1])
+
+
+def test_sharded_build_two_gloo_ranks_on_one_card(tmp_path):
+    """`build_minitree_sharded` on two gloo ranks that share cuda:0
+    (NCCL refuses two ranks on one card; gloo takes device tensors),
+    without and with pruning: every rank's tree equals the single
+    build on the CPU bit for bit. The ranks' code is
+    tests/torch_par_ranks.py, as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.multiprocessing as mp
+
+    import torch_par_ranks as ranks
+    from bvh_tpu_torch.build.minitree import MiniTreeConfig, build_minitree
+
+    tris = sponza_class(20_000, seed=1)
+    arrays = dict(mn=tris.min(axis=1), mx=tris.max(axis=1),
+                  cc=tris.mean(axis=1))
+    np.savez(tmp_path / "inputs.npz", **arrays)
+    mp.spawn(ranks.run, args=(2, str(tmp_path), ["build"], False, "cuda:0"),
+             nprocs=2, join=True)
+    outs = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for name, kw in ranks.BUILD_CONFIGS.items():
+        b = build_minitree(*(torch.from_numpy(arrays[k])
+                             for k in ("mn", "mx", "cc")),
+                           MiniTreeConfig(**kw))
+        nc = b.node_count
+        for out in outs:
+            assert out[f"{name}_bounds"].tobytes() == \
+                b.bounds[:nc].numpy().tobytes()
+            assert np.array_equal(out[f"{name}_index"], b.index[:nc].numpy())
+            assert np.array_equal(out[f"{name}_prim_ids"],
+                                  b.prim_ids.numpy())
+            assert int(out[f"{name}_prim_count"]) == b.prim_count
