@@ -23,12 +23,14 @@ stage either, so it is torch ops.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bvh_tpu_torch.core import bbox as bbox_ops
 from bvh_tpu_torch.core.types import Bvh, Index, make_node_bounds_row
+from bvh_tpu_torch.core.utils import run_stage
 from bvh_tpu_torch.traverse.refit import parents_of
 
 _I64 = torch.int64
@@ -229,61 +231,115 @@ def _refit_dirty(bounds, index, parents, seeds):
     return bounds
 
 
-def _one_iteration(bounds, index, node_count: int, batch_cap: int,
-                   stack_depth: int, ratio: float):
-    cap = index.shape[0]
-    dev = bounds.device
-    ids = torch.arange(cap, device=dev)
-    parents = parents_of(index, node_count)
+def _scores(bounds, index, node_count: int):
+    """Each node's half-area; -inf at the root and past node_count."""
+    ids = torch.arange(index.shape[0], device=bounds.device)
+    return torch.where((ids > 0) & (ids < node_count),
+                       _half_area_rows(bounds), float("-inf"))
 
-    # candidates: largest half-area first, root excluded; the batch is
-    # ratio * node_count, in float32 as in `bvh_tpu`
-    valid_node = (ids > 0) & (ids < node_count)
-    scores = torch.where(valid_node, _half_area_rows(bounds), float("-inf"))
-    neg_sorted, ids_sorted = torch.sort(-scores, stable=True)
+
+def _candidates(bounds, index, node_count: int, batch_cap: int,
+                ratio: float):
+    """The largest half-areas first, root excluded, by one stable sort;
+    the batch is ratio * node_count, in float32 as in `bvh_tpu`.
+    Returns (cand [batch_cap], valid [batch_cap])."""
+    neg_sorted, ids_sorted = torch.sort(-_scores(bounds, index, node_count),
+                                        stable=True)
     batch_size = max(1, int(np.float32(node_count) * np.float32(ratio)))
-    valid = ((torch.arange(batch_cap, device=dev) < batch_size)
+    valid = ((torch.arange(batch_cap, device=bounds.device) < batch_size)
              & torch.isfinite(-neg_sorted[:batch_cap]))
-    cand = ids_sorted[:batch_cap]
-    to, diff, steps = _find_reinsertion_batch(bounds, index, parents, cand,
-                                              valid, stack_depth)
+    return ids_sorted[:batch_cap], valid
 
-    # greatest gain first (256), then the conflict-free greedy set
+
+class Moves(NamedTuple):
+    """The search's moves, greatest gain first (256): targets, moved
+    nodes, their siblings and parents, the 5-node conflict sets [5, B]
+    and which moves gain."""
+
+    to_s: torch.Tensor
+    from_s: torch.Tensor
+    sib_s: torch.Tensor
+    pfrom_s: torch.Tensor
+    conflicts: torch.Tensor
+    ok: torch.Tensor
+
+
+def _gain_order(to, diff, cand, parents) -> Moves:
+    cap = parents.shape[0]
     order = torch.sort(-diff, stable=True).indices
     to_s = to[order]
     from_s = cand[order]
     sib_s = Bvh.get_sibling_id(from_s)
     pto_s = parents[to_s.clamp(0, cap - 1)]
     pfrom_s = parents[from_s.clamp(0, cap - 1)]
-    conflicts = torch.stack([to_s, from_s, sib_s, pto_s, pfrom_s])
-    accepted = _greedy_accept(conflicts, diff[order] > 0, cap)
+    return Moves(to_s, from_s, sib_s, pfrom_s,
+                 torch.stack([to_s, from_s, sib_s, pto_s, pfrom_s]),
+                 diff[order] > 0)
 
-    # apply every accepted move (reinsert_node, 190-213); their conflict
-    # sets are disjoint, so the writes touch disjoint slots
+
+def _apply(bounds, index, mv: Moves, accepted):
+    """Apply every accepted move (reinsert_node, 190-213); their conflict
+    sets are disjoint, so the writes touch disjoint slots."""
+    cap = index.shape[0]
     a = accepted
-    sib_c = sib_s.clamp(0, cap - 1)
-    to_c = to_s.clamp(0, cap - 1)
+    sib_c = mv.sib_s.clamp(0, cap - 1)
+    to_c = mv.to_s.clamp(0, cap - 1)
     sib_rows, sib_idx = bounds[sib_c], index[sib_c]
     dst_rows, dst_idx = bounds[to_c], index[to_c]
     bounds = bounds.clone()
     index = index.clone()
-    index[to_s[a]] = Index.make_inner(Bvh.get_left_sibling_id(from_s[a]))
-    bounds[sib_s[a]] = dst_rows[a]
-    index[sib_s[a]] = dst_idx[a]
-    bounds[pfrom_s[a]] = sib_rows[a]
-    index[pfrom_s[a]] = sib_idx[a]
+    index[mv.to_s[a]] = Index.make_inner(Bvh.get_left_sibling_id(mv.from_s[a]))
+    bounds[mv.sib_s[a]] = dst_rows[a]
+    index[mv.sib_s[a]] = dst_idx[a]
+    bounds[mv.pfrom_s[a]] = sib_rows[a]
+    index[mv.pfrom_s[a]] = sib_idx[a]
+    return bounds, index
 
-    # refit from {to, parent(from)} of each applied move: the only nodes
-    # whose boxes changed; duplicates turn inert
+
+def _refit_seeds(index, node_count: int, mv: Moves, accepted):
+    """The new tree's parents, and the refit's seeds: {to, parent(from)}
+    of each applied move, the only nodes whose boxes changed, sorted
+    descending with duplicates made inert (-1)."""
     parents = parents_of(index, node_count)
-    seeds = torch.where(a[None, :], torch.stack([to_s, pfrom_s]),
+    seeds = torch.where(accepted[None, :], torch.stack([mv.to_s, mv.pfrom_s]),
                         -1).reshape(-1)
     s_sorted = torch.sort(seeds, descending=True).values
-    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=seeds.device),
                      s_sorted[1:] == s_sorted[:-1]])
-    bounds = _refit_dirty(bounds, index, parents,
-                          torch.where(dup, -1, s_sorted))
-    return bounds, index, steps, a
+    return parents, torch.where(dup, -1, s_sorted)
+
+
+def _one_iteration(bounds, index, node_count: int, batch_cap: int,
+                   stack_depth: int, ratio: float, stage=run_stage):
+    """One round of candidates, search, greedy accept, apply and dirty
+    refit. Each stage runs through `stage` (`core.utils.run_stage`):
+    parents, candidates, search, gain_sort, accept, apply, seeds,
+    refit. Returns (bounds, index, the search's lockstep steps, the
+    accepted moves)."""
+    cap = index.shape[0]
+    parents = stage("parents", parents_of, index, node_count)
+    cand, valid = stage("candidates", _candidates, bounds, index, node_count,
+                        batch_cap, ratio)
+    to, diff, steps = stage("search", _find_reinsertion_batch, bounds, index,
+                            parents, cand, valid, stack_depth)
+    mv = stage("gain_sort", _gain_order, to, diff, cand, parents)
+    accepted = stage("accept", _greedy_accept, mv.conflicts, mv.ok, cap)
+    bounds, index = stage("apply", _apply, bounds, index, mv, accepted)
+    parents, seeds = stage("seeds", _refit_seeds, index, node_count, mv,
+                           accepted)
+    bounds = stage("refit", _refit_dirty, bounds, index, parents, seeds)
+    return bounds, index, steps, accepted
+
+
+def iteration_args(bvh: Bvh, config: ReinsertionConfig) -> tuple:
+    """`_one_iteration`'s arguments for `bvh`: bounds, index, node count,
+    the batch capacity (a multiple of 128 within the node capacity),
+    the search's stack depth and the batch ratio."""
+    cap = bvh.index.shape[0]
+    batch_cap = config.max_batch or max(1, int(cap * config.batch_size_ratio) + 1)
+    batch_cap = min(-(-batch_cap // 128) * 128, cap)
+    return (bvh.bounds, bvh.index, int(bvh.node_count), batch_cap,
+            config.search_stack_depth, config.batch_size_ratio)
 
 
 def optimize_reinsertion(bvh: Bvh, config: ReinsertionConfig | None = None,
@@ -294,14 +350,9 @@ def optimize_reinsertion(bvh: Bvh, config: ReinsertionConfig | None = None,
     ("accepted")."""
     if config is None:
         config = ReinsertionConfig()
-    cap = bvh.index.shape[0]
-    batch_cap = config.max_batch or max(1, int(cap * config.batch_size_ratio) + 1)
-    batch_cap = min(-(-batch_cap // 128) * 128, cap)
-    bounds, index = bvh.bounds, bvh.index
+    bounds, index, *rest = iteration_args(bvh, config)
     for _ in range(config.max_iter_count):
-        bounds, index, steps, accepted = _one_iteration(
-            bounds, index, int(bvh.node_count), batch_cap,
-            config.search_stack_depth, config.batch_size_ratio)
+        bounds, index, steps, accepted = _one_iteration(bounds, index, *rest)
         if stats is not None:
             stats.setdefault("steps", []).append(int(steps))
             stats.setdefault("accepted", []).append(int(accepted.sum()))

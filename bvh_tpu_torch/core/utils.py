@@ -90,3 +90,13 @@ def morton_encode(coords: torch.Tensor, dim: int | None = None,
         out = out | (split_bits(coords[..., axis].to(torch.int64), dim, bits)
                      << axis)
     return out & ((1 << bits) - 1)
+
+
+def run_stage(name: str, fn, *args, **kwargs):
+    """Run one stage of a staged path, `fn(*args, **kwargs)`: the render
+    (`wide_treelet._render`), the mini-tree build
+    (`minitree_fast.build_minitree_fast`) and a reinsertion iteration
+    (`reinsertion._one_iteration`). A profiler passes its own runner in
+    its place to time or record each stage by `name`
+    (bvh_tpu_torch/tools/timing.py's `StageTimer`)."""
+    return fn(*args, **kwargs)

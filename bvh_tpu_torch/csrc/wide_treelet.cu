@@ -388,10 +388,10 @@ extern "C" int bvh_wide_treelet_traverse(const float* cols, int T, int P,
 }
 
 // The ablation variants of the closest-hit, fast-form kernel, as
-// tools/ablate_kernel.py runs them: `variant` is kNoQuad (1), kNoSort
-// (2) or kNoPush (4); arguments and outputs as
-// bvh_wide_treelet_traverse. Returns cudaErrorInvalidValue for another
-// variant.
+// tools/ablate_kernel.py and tools/ablate_kernel2.py run them: `variant`
+// is 0 (the full kernel), kNoQuad (1), kNoSort (2), kNoQuad | kNoSort (3)
+// or kNoPush (4). Arguments and outputs as bvh_wide_treelet_traverse.
+// Returns cudaErrorInvalidValue for another variant.
 extern "C" int bvh_wide_treelet_ablate(const float* cols, int T, int P,
                                        const int* tid, const float* rays,
                                        int L, int variant, int stack_depth,
@@ -399,12 +399,14 @@ extern "C" int bvh_wide_treelet_ablate(const float* cols, int T, int P,
                                        void* stream) {
     (void)T;
     auto s = static_cast<cudaStream_t>(stream);
-    if (variant != kNoQuad && variant != kNoSort && variant != kNoPush)
+    if (variant < 0 || variant > kNoPush)
         return static_cast<int>(cudaErrorInvalidValue);
     if (L <= 0) return static_cast<int>(cudaGetLastError());
-    if (variant == kNoQuad)
-        return launch<false, false, kNoQuad>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-    if (variant == kNoSort)
-        return launch<false, false, kNoSort>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-    return launch<false, false, kNoPush>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    switch (variant) {
+        case 0: return launch<false, false, 0>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        case 1: return launch<false, false, 1>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        case 2: return launch<false, false, 2>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        case 3: return launch<false, false, 3>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        default: return launch<false, false, 4>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+    }
 }

@@ -31,6 +31,9 @@ from bvh_tpu_torch.traverse import wide_treelet as wt
 
 VARIANTS = {"no quad MT": wt.ABLATE_NO_QUAD, "no sort8": wt.ABLATE_NO_SORT,
             "no stack pushes": wt.ABLATE_NO_PUSH}
+# the masks csrc/wide_treelet.cu instantiates: nothing left out, each
+# part alone, and the quad tests with the sort (tools/ablate_kernel2.py)
+MASKS = (0, *VARIANTS.values(), wt.ABLATE_NO_QUAD | wt.ABLATE_NO_SORT)
 NO_DOT = ("default-precision dot: n/a on this card (B1 fetches a column "
           "with loads; there is no dot to make less precise)")
 
@@ -70,11 +73,11 @@ def chain_pairs(B: int, device):
 def traverse_pairs_ablate(table_cols, tid, rays, *, variant: int,
                           stack_depth: int):
     """Kernel B1's closest-hit, fast-form traversal with the code of
-    `variant` (one of `VARIANTS`' masks) left out: the CUDA kernel for
-    CUDA tensors, `traverse_pairs_plain(..., ablate=variant)` for CPU
-    tensors. Inputs (the column tables [T, P, 64]) and outputs as
-    `traverse_pairs`."""
-    if variant not in VARIANTS.values():
+    `variant` (one of `MASKS`; 0 leaves nothing out) left out: the CUDA
+    kernel for CUDA tensors,
+    `traverse_pairs_plain(..., ablate=variant)` for CPU tensors. Inputs
+    (the column tables [T, P, 64]) and outputs as `traverse_pairs`."""
+    if variant not in MASKS:
         raise ValueError(f"traverse_pairs_ablate: unknown variant {variant}")
     if rays.device.type == "cpu":
         return wt.traverse_pairs_plain(table_cols, tid, rays, any_hit=False,

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import statistics
 import time
+import warnings
 
 import torch
 
@@ -60,6 +61,25 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _one_call(fn, device, queued: bool = False) -> tuple[float, object]:
+    """ms of one call of `fn`: CUDA events around it on a CUDA device
+    (host gaps included; `queued` behind a head start when asked),
+    perf_counter on the CPU."""
+    if torch.device(device).type == "cuda":
+        if queued:
+            torch.cuda._sleep(HEAD_START_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
 def time_calls(fn, device, n: int = 5,
                queued: bool = False) -> tuple[float, object]:
     """Median ms of n calls of `fn` after one warm-up, each call timed on
@@ -70,21 +90,27 @@ def time_calls(fn, device, n: int = 5,
     sync(device)
     ts = []
     for _ in range(n):
-        if torch.device(device).type == "cuda":
-            if queued:
-                torch.cuda._sleep(HEAD_START_CYCLES)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            out = fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
+        ms, out = _one_call(fn, device, queued)
+        ts.append(ms)
     return statistics.median(ts), out
+
+
+def first_then_median(name: str, fn, device,
+                      reps: int) -> tuple[float, float, object]:
+    """(ms of the first call, median ms of `reps` calls after it, the
+    first call's output), each call timed on its own as `time_calls`
+    does. The first call is reported apart: it holds the kernels' build
+    and first use. Every later call's output is guarded against the
+    first's."""
+    sync(device)
+    first_ms, ref = _one_call(fn, device)
+    ts = []
+    out = ref
+    for _ in range(reps):
+        ms, out = _one_call(fn, device)
+        ts.append(ms)
+    guard(name, out, ref)
+    return first_ms, statistics.median(ts) if ts else first_ms, ref
 
 
 def timed(name: str, fn, ref, device, n: int = 5,
@@ -96,8 +122,9 @@ def timed(name: str, fn, ref, device, n: int = 5,
 
 
 class StageTimer:
-    """A stage runner for the render (`wide_treelet.run_stage`'s
-    signature) that times every call by stage name: CUDA events around
+    """A stage runner (`core.utils.run_stage`'s signature: the render,
+    the mini-tree build, a reinsertion iteration) that times every call
+    by stage name: CUDA events around
     the call on a CUDA device, so a stage's time is the stream's time
     from the call's start to its end, host waits included; perf_counter
     on the CPU."""
@@ -130,4 +157,32 @@ class StageTimer:
             t, c = out.get(name, (0.0, 0))
             out[name] = (t + ms, c + 1)
         self._marks.clear()
+        return out
+
+
+class SyncCounter:
+    """A stage runner that counts each stage's host syncs by stage name:
+    the calls that make the host wait for the card (a tensor read as a
+    Python value, a copy to the host, `nonzero`, ...), as
+    `torch.cuda.set_sync_debug_mode` reports them. A stage run inside
+    another is counted apart from it. On the CPU nothing waits for a
+    device and `counts` stays empty."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.counts: dict[str, int] = {}
+
+    def __call__(self, name, fn, *args, **kwargs):
+        if not self.cuda:
+            return fn(*args, **kwargs)
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        n = sum("synchroniz" in str(w.message) for w in seen)
+        self.counts[name] = self.counts.get(name, 0) + n
         return out

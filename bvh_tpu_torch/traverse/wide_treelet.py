@@ -43,6 +43,7 @@ import torch
 from bvh_tpu_torch import kernels
 from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.core.types import INVALID_PRIM_ID, Bvh
+from bvh_tpu_torch.core.utils import run_stage
 from bvh_tpu_torch.traverse.collect import (
     collect_portals,
     collect_super_pairs,
@@ -1013,13 +1014,6 @@ def merge_round(best, tmax, cur, rsel, validk, pk, pr, out_f, out_i, *,
         tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
     bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
     cur[rsel] += k
-
-
-def run_stage(name: str, fn, *args, **kwargs):
-    """Run one stage of the render, `fn(*args, **kwargs)`. A profiler
-    passes its own runner to `_render` to time or record each stage by
-    `name` (bvh_tpu_torch/tools/profile_r3.py)."""
-    return fn(*args, **kwargs)
 
 
 def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,

@@ -132,7 +132,25 @@ exits non-zero):
    examples as subprocesses on the card and with `--device cpu` (rc 0,
    the same line), and the native bindings on tests/golden's tree
    (every 16th golden ray's closest hit). Its results print on a JSON
-   line `{"par": ...}` before the kernels line.
+   line `{"par": ...}` before the kernels line;
+19. the tools for building, rendering and dims (`bvh_tpu_torch/tools/`),
+   each through its `run` at full width with the launch counts reset
+   before and read after it: `bench_build` at 262,144 (lbvh,
+   level-synchronous mini-tree, binned, mtf, high; its high tree equal
+   to phase 5's), `profile_mtf` and `profile_reinsertion` (inputs lbvh
+   and mtf), whose staged build and iteration must equal the unstaged
+   ones bit for bit, `profile_build`, `check_mtf_parity` (the two
+   mini-tree builds bit-equal), `bench_wide` (max_prims 512, 1024,
+   2048 on phase 5's tree, 81,790 hits each), `check_wide_quick` on
+   that tree (81,790) and on phase 2's native tree (within the edge
+   budget), `check_super_quick` (the forced super level gives the flat
+   render's 81,790), `ablate_kernel2` on T3's round-1 pairs (the base
+   variant equal to B1), `bench_sanmiguel` on phase 13's tree and
+   tables (77,420 hits; the v2 round trip `bvh_equal`, the tables cut
+   from the loaded tree and its render equal to the built tree's) and
+   `bench_dims` (its parity gate). B1, B2, B3, B4, B6 and T1 must each
+   launch; the results go to chiprun_out/phase19.json and a `{"tools":
+   ...}` line before the kernels line.
 
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
@@ -860,6 +878,11 @@ def two_level_phase() -> dict:
                         + min(nbytes(a_args[0]), 56 * pcnt // 2),
                         OPS_PORTAL * pcnt)
     out["t4"] = t4
+    # the scene, its tree and tables for phase 19's bench_sanmiguel
+    from bvh_tpu_torch.tools.bench_wide import WideScene
+
+    out["scene"] = WideScene(tris, res.bvh, res.flat, res.rays)
+    out["tl"] = tl
     return out
 
 
@@ -1649,6 +1672,135 @@ def par_phase() -> dict:
     return dict(card=card, ranks=outs, examples=examples, native_bad=bad)
 
 
+def plain(x):
+    """`x` without its tensors, trees and tables: the numbers, strings
+    and flags that JSON holds (None where nothing is left)."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, (np.integer, np.floating, np.bool_)):
+        return x.item()
+    if isinstance(x, dict):
+        out = {str(k): plain(v) for k, v in x.items()}
+        return {k: v for k, v in out.items() if v is not None}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        vals = [plain(v) for v in x]
+        return None if any(v is None for v in vals) else vals
+    return None
+
+
+def tools_phase(boxes, sc, native_bvh, round1, big_sc, big_tl) -> dict:
+    """Phase 19: the tools of bvh_tpu_torch/tools/ that drive the build,
+    the render and the dims, each through its `run` at full width, with
+    the launch counts reset before and read after each. `boxes`: the
+    262K scene's prim boxes and centres on the card; `sc`: the 262K
+    scene with phase 5's tree (`bench_wide.WideScene`); `native_bvh`:
+    phase 2's native tree; `round1`: T3's round-1 record (phase 10);
+    `big_sc`, `big_tl`: phase 13's San-Miguel-class scene and tables.
+    Fewer repetitions than the tools' defaults; every size theirs."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.tools import (ablate_kernel2, bench_build, bench_dims,
+                                     bench_sanmiguel, bench_wide,
+                                     check_mtf_parity, check_super_quick,
+                                     check_wide_quick, profile_build,
+                                     profile_mtf, profile_reinsertion)
+
+    t_phase = time.perf_counter()
+    out, launches, secs = {}, {}, {}
+
+    def tool(name, fn):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        out[name] = plain(res)
+        log(f"# phase 19, {name}: {secs[name]:.1f} s, launches "
+            f"{launches[name]}")
+        return res
+
+    # items 1-5: the builds
+    bb = tool("bench_build", lambda: bench_build.run(
+        N_TRIS, DEV, reps=1, boxes=boxes))
+    if not same_tree(bb["high"]["tree"], sc.tree):
+        raise AssertionError("bench_build's high tree is not phase 5's")
+    mtf = tool("profile_mtf", lambda: profile_mtf.run(device=DEV, reps=1,
+                                                      boxes=boxes))
+    if not same_tree(mtf["tree"], bb["mtf"]["tree"]):
+        raise AssertionError("profile_mtf's tree is not bench_build's mtf")
+    for inp, src in (("lbvh", "lbvh"), ("high", "mtf")):
+        tool(f"profile_reinsertion_{inp}", lambda inp=inp, src=src:
+             profile_reinsertion.run(input_name=inp, device=DEV, reps=3,
+                                     tree=bb[src]["tree"]))
+    del bb, mtf
+    tool("profile_build", lambda: profile_build.run(N_TRIS, DEV, reps=1))
+    par = tool("check_mtf_parity", lambda: check_mtf_parity.run(N_TRIS, DEV))
+    if not par["equal"]:
+        raise AssertionError("build_minitree and build_minitree_fast differ "
+                             "at 262K")
+    del par
+
+    # items 6-8, 10: the 262K render on phase 5's tree
+    wide = tool("bench_wide", lambda: bench_wide.run(
+        N_TRIS, SIDE, device=DEV, reps=2, scene=sc))
+    tl = wide[1024]["tl"]
+    if {r["hits"] for r in wide.values()} != {ORACLE_HITS_REFERENCE_TREE}:
+        raise AssertionError("bench_wide's hits are not the oracle's at "
+                             "every max_prims")
+    del wide
+    quick = tool("check_wide_quick", lambda: check_wide_quick.run(
+        N_TRIS, SIDE, device=DEV, scene=sc, tl=tl))
+    native_sc = sc._replace(tree=native_bvh._replace(
+        bounds=native_bvh.bounds.to(DEV), index=native_bvh.index.to(DEV),
+        prim_ids=native_bvh.prim_ids.to(DEV)))
+    quick_native = tool("check_wide_quick_native", lambda:
+                        check_wide_quick.run(N_TRIS, SIDE, "native", DEV,
+                                             scene=native_sc))
+    sup = tool("check_super_quick", lambda: check_super_quick.run(
+        N_TRIS, SIDE, DEV, reps=2, scene=sc, flat_tl=tl))
+    if not (quick["ok"] and quick["hits"] == ORACLE_HITS_REFERENCE_TREE
+            and quick_native["ok"] and sup["ok"]
+            and sup["two_level"]["hits"] == ORACLE_HITS_REFERENCE_TREE):
+        raise AssertionError("a quick check failed")
+    del quick, quick_native, sup, native_sc
+    tool("ablate_kernel2", lambda: ablate_kernel2.run(tl, sc.rays, DEV,
+                                                      round1=round1))
+
+    # item 9: the San-Miguel-class tables and the round trip (A13c)
+    big = tool("bench_sanmiguel", lambda: bench_sanmiguel.run(
+        N_BIG, SIDE, max_prims=1024, reps=2, device=DEV, scene=big_sc,
+        tl=big_tl))
+    a13 = big["a13c"]
+    if not (big["ok"] and big["render"]["hits"] == BIG_ORACLE_HITS
+            and a13["bvh_equal"] and a13["tables_equal"]
+            and a13["hits_equal"]):
+        raise AssertionError("bench_sanmiguel: the round trip or the hits "
+                             "failed")
+    del big, a13
+
+    # item 11: dims
+    tool("bench_dims", lambda: bench_dims.run(DIMS_M, DIMS_RAYS, reps=2,
+                                              device=DEV))
+
+    total = {}
+    for per_tool in launches.values():
+        for k, v in per_tool.items():
+            total[k] = total.get(k, 0) + v
+    for k in (kernels.WIDE_TREELET, kernels.COLLECT, kernels.GROUP_BUILD,
+              kernels.COLLECT_SUPER, kernels.SPHERE_TRAVERSE,
+              kernels.WIDE_TREELET_ABLATE):
+        if not total.get(k.name):
+            raise AssertionError(f"phase 19 never launched {k.name}")
+    res = dict(seconds=time.perf_counter() - t_phase, tool_seconds=secs,
+               launches=launches, launches_total=total, results=out,
+               card=card_line())
+    with open(os.path.join(OUT_DIR, "phase19.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    log(f"# phase 19 in {res['seconds']:.1f} s; launches {total}; results in "
+        f"chiprun_out/phase19.json")
+    return res
+
+
 def run() -> dict:
     from bvh_tpu_torch import kernels
     from bvh_tpu_torch.api.native import NativeBvh3f
@@ -2059,6 +2211,7 @@ def run() -> dict:
     del tl, ntl, nhit, shit, srays, spacked
     torch.cuda.empty_cache()
     b4 = two_level_phase()
+    big_sc, big_tl = b4.pop("scene"), b4.pop("tl")
     torch.cuda.empty_cache()
 
     # ---- 14-16. dims through B6, float64, lbvh and the wide layout ----
@@ -2081,6 +2234,15 @@ def run() -> dict:
             k: o[k] for k in ("single_build_ms", "single_traversal_ms",
                               "ray_stride", "equal_to_single_build")
             if k in o} for o in par["ranks"]]}}), flush=True)
+
+    # ---- 19. the tools for building, rendering and dims -----------------
+    from bvh_tpu_torch.tools.bench_wide import WideScene
+
+    t19 = tools_phase((mn, mx, cc), WideScene(tris, tree, flat, rays),
+                      native_bvh, t3["round_one"], big_sc, big_tl)
+    del big_sc, big_tl
+    print(json.dumps({"tools": {k: t19[k] for k in (
+        "seconds", "tool_seconds", "launches_total", "card")}}), flush=True)
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n, **extra):

@@ -85,4 +85,4 @@ def test_variants_leave_out_their_code(scene, pairs):
     assert not out["no stack pushes"][1][2].any()
     assert not torch.equal(out["no sort8"][1][1], full[1][1])
     with pytest.raises(ValueError, match="unknown variant"):
-        ak.traverse_pairs_ablate(cols, tid, rays, variant=3, stack_depth=sd)
+        ak.traverse_pairs_ablate(cols, tid, rays, variant=8, stack_depth=sd)

@@ -815,7 +815,7 @@ def test_ablation_variants_on_chain_table(depth):
     assert kernels.WIDE_TREELET_ABLATE.launches == before + len(ak.VARIANTS)
 
 
-@pytest.mark.parametrize("variant", [1, 2, 4])
+@pytest.mark.parametrize("variant", [0, 1, 2, 3, 4])
 def test_ablation_variant_equals_ablated_plain(scene, variant):
     """Off the chain table a variant computes something else than B1; the
     plain version with the same code left out follows it bit for bit."""
@@ -865,3 +865,84 @@ def test_sharded_build_two_gloo_ranks_on_one_card(tmp_path):
             assert np.array_equal(out[f"{name}_prim_ids"],
                                   b.prim_ids.numpy())
             assert int(out[f"{name}_prim_count"]) == b.prim_count
+
+
+def _cpu(x):
+    """Tensors, and the tuples, NamedTuples, lists and dicts holding
+    them, moved to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cpu(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu(v) for v in x)
+    return x
+
+
+def _tool_case(name, device):
+    """Tool `name`'s run at a small size on `device`, reduced to its
+    non-timing results."""
+    from bvh_tpu_torch.tools import (ablate_kernel2, bench_build, bench_dims,
+                                     bench_sanmiguel, bench_wide,
+                                     check_mtf_parity, check_super_quick,
+                                     check_wide_quick, profile_build,
+                                     profile_mtf, profile_reinsertion)
+    from bvh_tpu_torch.tools.profile_r3 import bench_scene
+
+    small = dict(n=3000, side=32)
+    if name == "bench_build":
+        res = bench_build.run(3000, device, reps=1)
+        return tuple(r["tree"] for r in res.values())
+    if name == "profile_mtf":
+        return profile_mtf.run(3000, device, reps=1)["tree"]
+    if name == "profile_reinsertion":
+        return tuple(profile_reinsertion.run(3000, i, device, 1)["out"]
+                     for i in profile_reinsertion.INPUTS)
+    if name == "profile_build":
+        res = profile_build.run(4096, device, reps=1)
+        return tuple(b[2] for b in res["builds"].values())
+    if name == "check_mtf_parity":
+        res = check_mtf_parity.run(3000, device)
+        return res["equal"], res["fast"]
+    if name == "bench_wide":
+        res = bench_wide.run(**small, max_prims=(128, 256), device=device,
+                             reps=1)
+        return tuple(r["fields"] for r in res.values())
+    if name == "check_wide_quick":
+        res = check_wide_quick.run(**small, device=device)
+        return res["ok"], res["fields"], res["shadow_hits"]
+    if name == "check_super_quick":
+        res = check_super_quick.run(**small, device=device, reps=1,
+                                    max_prims=128, super_prims=512)
+        return res["ok"], res["two_level"]["fields"], res["flat"]["fields"]
+    if name == "bench_sanmiguel":
+        res = bench_sanmiguel.run(**small, max_prims=128, super_prims=512,
+                                  reps=1, device=device)
+        return res["ok"], res["render"]["fields"], res["max_new_overflow"]
+    if name == "ablate_kernel2":
+        tl, rays, _ = bench_scene(3000, 32, device)
+        res = ablate_kernel2.run(tl, rays, device, reps=1)
+        return tuple(v["out"] for v in res.values())
+    res = bench_dims.run(m=64, rays=1024, f64_rays=1024, reps=1,
+                         device=device)
+    return tuple(res[d]["fields"] for d in bench_dims.DIMS), \
+        res["f64"]["hits"]
+
+
+@pytest.mark.parametrize("name", [
+    "bench_build", "profile_mtf", "profile_reinsertion", "profile_build",
+    "check_mtf_parity", "bench_wide", "check_wide_quick",
+    "check_super_quick", "bench_sanmiguel", "ablate_kernel2", "bench_dims"])
+def test_tool_on_card_equals_cpu(name):
+    """Each tool of bvh_tpu_torch/tools/ that drives the build, the
+    render or the dims: its run on the card, through the
+    kernels, equals its run on the CPU, through the plain versions, in
+    every result that is not a time (trees, hits, outputs, checks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools.timing import same
+
+    assert same(_cpu(_tool_case(name, "cuda")), _tool_case(name, "cpu"))
+
