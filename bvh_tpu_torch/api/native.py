@@ -56,8 +56,11 @@ def library_path() -> str:
         _SOURCES[:1], _SOURCES, "libbvh_c")
 
 
-def load_library():
-    lib = ctypes.CDLL(library_path())
+def load_library(path: str | None = None):
+    """The native library (`library_path()`), or the library at `path`
+    that links `native/bvh_c.cpp` in, with the bvh3f_* and thread-pool
+    calls' ctypes signatures."""
+    lib = ctypes.CDLL(path or library_path())
     lib.bvh_thread_pool_create.restype = ctypes.c_void_p
     lib.bvh_thread_pool_create.argtypes = [ctypes.c_size_t]
     lib.bvh_thread_pool_destroy.argtypes = [ctypes.c_void_p]

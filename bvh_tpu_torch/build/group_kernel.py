@@ -1,7 +1,8 @@
 """Per-group binned-SAH build (kernel B3): plain version and dispatcher.
 
-Counterpart of `bvh_tpu.build.group_kernel` (`_group_build_kernel_ls`,
-launched by `group_forest_build`). For each Morton-grid group g of
+Counterpart of `bvh_tpu.build.group_kernel` (`_group_build_kernel_ls`
+and `_group_build_kernel`, the "ls" and "bfs" variants launched by
+`group_forest_build`). For each Morton-grid group g of
 `sizes[g] <= P` primitives it builds the whole binned-SAH subtree
 (reference: binned_sah_builder.h:82-156, top_down_sah_builder.h:89-125):
 
@@ -24,7 +25,8 @@ Layouts (as `bvh_tpu`):
   nbf  [8, G*NCAP] f32 rows 0..2dim-1 interleaved bounds, 6 half-area,
                       7 ancestor minimum half-area
   nbi  [8, G*NCAP] i32 rows 0 begin, 1 end (local), 2 first child slot
-                      (-1 = leaf), 3..7 zero
+                      (-1 = leaf), 3 zero ("ls") or the BFS queue
+                      ("bfs"), 4..7 zero
   src  [G*P] i32      the source lane of each final position
   cnt  [G] i32        node count per group
 
@@ -35,6 +37,11 @@ kernel works a group's open nodes of one BFS level together (a warp a
 node of at most 128 lanes, the whole CTA a larger one) and gives the
 level's splitting nodes their children's slots by a scan in slot order,
 as the plain version does over all groups at once.
+
+The "bfs" variant of `bvh_tpu` builds the same tree one node an
+iteration and leaves its work queue in `nbi` row 3 (`bvh_tpu`
+group_kernel.py:133-134, 360-368); here it is kernel B3's tree (or the
+plain version's) with that row written after it by `bfs_queue_row`.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ _F32 = torch.float32
 _I64 = torch.int64
 _BIG = torch.finfo(_F32).max
 _INF = float("inf")
+VARIANTS = ("ls", "bfs")
 
 
 def _first_max_axis(diag):
@@ -292,18 +300,55 @@ def group_forest_build_ref(pf, sizes, *, dim: int, P: int, NCAP=None,
             src.to(torch.int32), cnt_out)
 
 
+def bfs_queue_row(nbi, G: int, NCAP: int, min_leaf: int) -> torch.Tensor:
+    """`nbi` with row 3 set to the BFS kernel's work queue, in place.
+
+    That kernel (`bvh_tpu` group_kernel.py:133-134, 360-368) queues the
+    root at queue position 0 when it holds more than min_leaf prims, and
+    each node it splits appends those of its children (slots tail,
+    tail + 1) that do. Slots are handed out in pop order, so the queue
+    lists every node of more than min_leaf prims (including those the
+    SAH then closed as leaves) in slot order; the rest of the row stays
+    zero. Torch ops only, on the device of `nbi`, with no host sync."""
+    rows = nbi.view(8, G, NCAP)
+    opened = (rows[1] - rows[0]) > min_leaf
+    pos = torch.where(opened, torch.cumsum(opened, dim=1) - 1, NCAP)
+    slots = torch.arange(NCAP, dtype=nbi.dtype, device=nbi.device)
+    queue = torch.zeros((G, NCAP + 1), dtype=nbi.dtype, device=nbi.device)
+    queue.scatter_(1, pos, slots.expand(G, NCAP))  # column NCAP: the rest
+    rows[3] = queue[:, :NCAP]
+    return nbi
+
+
 def group_forest_build(pf, sizes, *, dim: int, P: int, NCAP=None,
                        min_leaf: int = 1, max_leaf: int = 8,
-                       log_cluster: int = 0, cost_ratio: float = 1.0):
+                       log_cluster: int = 0, cost_ratio: float = 1.0,
+                       variant: str = "ls"):
     """Kernel B3 over G = pf.shape[1] // P groups: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors. Returns
-    (nbf [8, G*NCAP] f32, nbi [8, G*NCAP] i32, src [G*P] i32,
+    CUDA tensors, the plain version for CPU tensors. `variant`: "ls"
+    or "bfs" (`bvh_tpu` group_kernel.py:866-869), the same tree; "bfs"
+    also writes the BFS queue into `nbi` row 3 (`bfs_queue_row`).
+    Returns (nbf [8, G*NCAP] f32, nbi [8, G*NCAP] i32, src [G*P] i32,
     cnt [G] i32)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"group_forest_build: unknown variant {variant!r}; "
+                         f"one of {VARIANTS}")
+    if NCAP is None:
+        NCAP = 2 * P
+    out = _group_forest_build(pf, sizes, dim=dim, P=P, NCAP=NCAP,
+                              min_leaf=min_leaf, max_leaf=max_leaf,
+                              log_cluster=log_cluster, cost_ratio=cost_ratio)
+    if variant == "bfs":
+        bfs_queue_row(out[1], pf.shape[1] // P, NCAP, min_leaf)
+    return out
+
+
+def _group_forest_build(pf, sizes, *, dim, P, NCAP, min_leaf, max_leaf,
+                        log_cluster, cost_ratio):
+    """`group_forest_build`'s "ls" output."""
     if P % 128:
         raise ValueError(f"group_forest_build: P={P} must be a multiple "
                          "of 128")
-    if NCAP is None:
-        NCAP = 2 * P
     kw = dict(dim=dim, P=P, NCAP=NCAP, min_leaf=min_leaf, max_leaf=max_leaf,
               log_cluster=log_cluster, cost_ratio=cost_ratio)
     if pf.device.type == "cpu":

@@ -22,11 +22,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bvh_tpu_torch.core.utils import uint_type_for
+
 PRIM_COUNT_BITS = 4  # reference: node.h:22
 MAX_PRIM_COUNT = (1 << PRIM_COUNT_BITS) - 1
 
 # The C API's BVH_INVALID_PRIM_ID (c_api/bvh.h:33) as an int64 value.
 INVALID_PRIM_ID = 0xFFFFFFFF
+
+
+def index_dtype_for(scalar_dtype: torch.dtype) -> torch.dtype:
+    """The index word's type for a scalar type (reference: node.h:21
+    `IndexBits = sizeof(T) * CHAR_BIT`): the width the v2 format
+    writes, while the tensors here carry index words as int64. Only
+    float32 and float64 scalars have one (KeyError otherwise)."""
+    if scalar_dtype not in (torch.float32, torch.float64):
+        raise KeyError(scalar_dtype)
+    return uint_type_for(scalar_dtype)
 
 
 class Index:

@@ -18,6 +18,19 @@ _INT_FOR_FLOAT = {
     torch.float16: torch.int16,
     torch.bfloat16: torch.int16,
 }
+# The unsigned type of the same width (reference: utils.h:16-25
+# `UnsignedIntType<Bits>`), for callers that name it.
+_UINT_FOR_FLOAT = {
+    torch.float32: torch.uint32,
+    torch.float64: torch.uint64,
+    torch.float16: torch.uint16,
+    torch.bfloat16: torch.uint16,
+}
+
+
+def uint_type_for(dtype: torch.dtype) -> torch.dtype:
+    """Unsigned integer type with the bit width of the float `dtype`."""
+    return _UINT_FOR_FLOAT[dtype]
 
 
 def robust_min(a, b):
@@ -90,6 +103,41 @@ def morton_encode(coords: torch.Tensor, dim: int | None = None,
         out = out | (split_bits(coords[..., axis].to(torch.int64), dim, bits)
                      << axis)
     return out & ((1 << bits) - 1)
+
+
+def scatter_max(target, indices, values) -> torch.Tensor:
+    """`target` with `target[i] = max(target[i], v)` over all pairs (i, v)
+    of `indices` and `values` along its first axis, as JAX's
+    `target.at[indices].max(values, mode="drop")` (the reference's
+    `atomic_max`, utils.h:124-129): a negative index counts from the end
+    once, an index still out of range is dropped, and duplicates combine
+    by their maximum. Returns a new tensor."""
+    target = torch.as_tensor(target)
+    n = target.shape[0]
+    idx = torch.as_tensor(indices, device=target.device).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    vals = torch.as_tensor(values, dtype=target.dtype,
+                           device=target.device).broadcast_to(
+                               idx.shape + target.shape[1:])
+    keep = (idx >= 0) & (idx < n)
+    idx, vals = idx[keep], vals[keep]
+    idx = idx.view(-1, *([1] * (target.dim() - 1))).expand_as(vals)
+    return target.clone().scatter_reduce_(0, idx, vals, "amax")
+
+
+def round_up_log2(i: int) -> int:
+    """ceil(log2(i)) of a Python int, 0 for i <= 1 (reference:
+    utils.h:96-99)."""
+    p = 0
+    while (1 << p) < i:
+        p += 1
+    return p
+
+
+def make_bitmask(bits: int) -> int:
+    """The Python int with the low `bits` bits set (reference:
+    utils.h:34-37)."""
+    return (1 << bits) - 1
 
 
 def run_stage(name: str, fn, *args, **kwargs):

@@ -39,6 +39,23 @@ their own:
 - `bench_dims`: 2D-4D spheres through B6 with the wavefront parity
   gate, and float64 triangles.
 
+The last five, for the render's per-ray gate and the launch and glue
+costs around the kernels:
+
+- `check_oracle`: the render of the native library's tree against a
+  per-ray tracer over the repo's native/bvh_c.cpp (`oracle_trace.cpp`),
+  fast and robust, within 4 rays a million;
+- `profile_floor`: the card's launch floor, eager loops of torch ops
+  against their CUDA-graph replays;
+- `profile_floor2`: the builders' and the render's glue ops at 262K
+  (gathers, scatters, fills, scans, sorts, the dim-0 cumsum and its
+  transposed form);
+- `profile_pure`: a render's device-only time from a trace, against
+  its event time, one render and four back to back;
+- `sweep_chain`: the render over treelet sizes and portals a round,
+  timed beside the entry point's render, every config's hits equal to
+  the default's.
+
 Each runs as `python -m bvh_tpu_torch.tools.<name>`, on the card unless
 given `--device cpu` (use small sizes there: each docstring gives
 them), and exposes a `run(..., device=)` that returns its results

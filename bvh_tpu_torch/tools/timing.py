@@ -12,6 +12,7 @@ a loop that computed something else raises instead of reporting a time.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 import warnings
 
@@ -24,6 +25,18 @@ HEAD_START_CYCLES = 2_000_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def device_line(device) -> str:
+    """What a time was taken on: the card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    gives them, or "cpu"."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:

@@ -1089,19 +1089,22 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
 def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
                    robust: bool, collect=collect_portals,
                    traverse=traverse_pairs,
-                   collect_super=collect_super_pairs, stage=run_stage):
+                   collect_super=collect_super_pairs, stage=run_stage,
+                   k: int | None = None):
     """`_render` of [8, R] packed rays at the capacities `caps` (the dict
     that `wide_treelet_intersect_tris(..., return_diag=True)` reports
-    under "caps"), with each stage run through `stage`. Returns what
-    `_render` returns; an overflow is reported in the diag, not
-    raised."""
+    under "caps"), with each stage run through `stage`, expanding `k`
+    portals a ready ray and round (default `portals_per_round(tl)`;
+    the hits do not depend on it). Returns what `_render` returns; an
+    overflow is reported in the diag, not raised."""
     return _render(
         tl, packed, any_hit=any_hit, robust=robust,
         top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
         max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
-        k=portals_per_round(tl), collect=collect, traverse=traverse,
-        collect_super=collect_super, sup_stack=caps["sup_stack"],
-        mps=caps["mps"], max_new=caps["max_new"], stage=stage)
+        k=portals_per_round(tl) if k is None else k, collect=collect,
+        traverse=traverse, collect_super=collect_super,
+        sup_stack=caps["sup_stack"], mps=caps["mps"],
+        max_new=caps["max_new"], stage=stage)
 
 
 def wide_treelet_intersect_tris(

@@ -19,7 +19,11 @@ exits non-zero):
    calculator) times the SMs: all G groups in one wave or not;
 4. kernel B3 (per-group binned SAH) against its plain version on the
    full staging: nbf, nbi, source lanes and node counts equal bit for
-   bit; the tree's levels and open nodes, which B3's bound counts;
+   bit; the tree's levels and open nodes, which B3's bound counts; then
+   its "bfs" variant (`group_forest_build(..., variant="bfs")`, B3 plus
+   the BFS queue in nbi row 3): one B3 launch, and all four outputs
+   equal to the plain version with the queue replayed on the host as
+   bvh_tpu's BFS kernel writes it, its entries the open nodes;
 5. the build path: `build_minitree_fast` + `optimize_reinsertion` on the
    card with launch counts reset before and read after; the same build
    through B3's plain version, also on the card; both trees equal bit
@@ -150,7 +154,24 @@ exits non-zero):
    from the loaded tree and its render equal to the built tree's) and
    `bench_dims` (its parity gate). B1, B2, B3, B4, B6 and T1 must each
    launch; the results go to chiprun_out/phase19.json and a `{"tools":
-   ...}` line before the kernels line.
+   ...}` line before the kernels line;
+20. the last five tools, each through its `run` at full width with the
+   launch counts reset before and read after it: `profile_floor` (n
+   2,097,152, eager loops against their CUDA-graph replays; first, so
+   that its launch floor reads the process as the earlier phases left
+   it), `check_oracle` (the native quality-2 tree's render, fast and
+   robust, on all 1,048,576 primary rays against the native tracer
+   within 4 rays a million, the robust path under the strict rule),
+   `profile_floor2`
+   (n 262,144, each op checked by value, H5's two cumsum forms),
+   `profile_pure` (render x1 and x4 on phase 5's tree, 81,790 hits,
+   kernel time from a trace against event time) and `sweep_chain`
+   (k 4 and 16 and max_prims 2048 beside the default and the entry
+   point, every config's hits bit-equal to the default's); then `entry()` on the card (equal
+   to its CPU run) and `dryrun_multichip(2)` on gloo ranks that share
+   the card. B1 and B2 must launch in the three render tools; the
+   results go to chiprun_out/phase20.json and a `{"tools20": ...}`
+   line before the kernels line.
 
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
@@ -249,10 +270,9 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    from bvh_tpu_torch.tools.timing import device_line
+
+    return device_line("cuda")
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -329,6 +349,40 @@ def b3_work(nbi, cnt, NCAP: int, min_leaf: int) -> dict:
                 split_lanes=split_lanes,
                 ops=lanes * OPS_BIN_LANE + split_lanes * OPS_PART_LANE
                 + nodes * OPS_SWEEP_NODE)
+
+
+def bfs_plain(pf, plan, b3_kw: dict):
+    """The plain version of B3's bfs variant on the card: the plain
+    build, then the queue row (`group_kernel.bfs_queue_row`)."""
+    from bvh_tpu_torch.build import group_kernel as gk
+
+    out = gk.group_forest_build_ref(pf, plan.counts, **b3_kw)
+    gk.bfs_queue_row(out[1], plan.G, plan.NCAP, b3_kw["min_leaf"])
+    return out
+
+
+def bfs_queue_plain(nbi, G: int, NCAP: int, min_leaf: int):
+    """(`nbi` with row 3 replayed as the BFS kernel writes it, the
+    queue entries over all groups) (bvh_tpu/build/group_kernel.py:
+    133-134, 141-148, 360-368), group by group on the host: the root is
+    queued if it holds more than min_leaf prims; each popped slot that
+    split (row 2 >= 0) queues those of its two children that do; the
+    rest of the row is zero."""
+    rows = nbi.view(8, G, NCAP).cpu().numpy().copy()
+    total = 0
+    for g in range(G):
+        b, e, child = rows[0, g], rows[1, g], rows[2, g]
+        queue = [0] if e[0] - b[0] > min_leaf else []
+        head = 0
+        while head < len(queue):
+            c = child[queue[head]]
+            head += 1
+            if c >= 0:
+                queue += [s for s in (c, c + 1) if e[s] - b[s] > min_leaf]
+        rows[3, g] = 0
+        rows[3, g, :len(queue)] = queue
+        total += len(queue)
+    return torch.from_numpy(rows.reshape(8, G * NCAP)).to(nbi.device), total
 
 
 class ColumnMarks:
@@ -884,6 +938,84 @@ def two_level_phase() -> dict:
     out["scene"] = WideScene(tris, res.bvh, res.flat, res.rays)
     out["tl"] = tl
     return out
+
+
+def last_tools_phase(sc) -> dict:
+    """Phase 20: the last five tools of bvh_tpu_torch/tools/, each through
+    its `run` at full width with the launch counts reset before and read
+    after, then the driver entry (`bvh_tpu_torch/entry.py`). `sc`: the
+    262K scene with phase 5's tree (`bench_wide.WideScene`)."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.entry import dryrun_multichip, entry
+    from bvh_tpu_torch.tools import (check_oracle, profile_floor,
+                                     profile_floor2, profile_pure,
+                                     sweep_chain)
+
+    t_phase = time.perf_counter()
+    out, launches, secs = {}, {}, {}
+
+    def tool(name, fn):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        out[name] = plain(res)
+        log(f"# phase 20, {name}: {secs[name]:.1f} s, launches "
+            f"{launches[name]}")
+        return res
+
+    tool("profile_floor", lambda: profile_floor.run(device=DEV))
+    oracle = tool("check_oracle", lambda: check_oracle.run(
+        N_TRIS, SIDE, device=DEV))
+    if not oracle["ok"]:
+        raise AssertionError("check_oracle: the render differs from the "
+                             "native tracer past the budget")
+    del oracle
+    tool("profile_floor2", lambda: profile_floor2.run(device=DEV))
+    pure = tool("profile_pure", lambda: profile_pure.run(
+        N_TRIS, SIDE, device=DEV, scene=sc))
+    if not (pure["ok"] and pure["hits"] == ORACLE_HITS_REFERENCE_TREE):
+        raise AssertionError("profile_pure's hits are not the oracle's")
+    del pure
+    sweep = tool("sweep_chain", lambda: sweep_chain.run(
+        N_TRIS, SIDE, configs="k=4;k=16;max_prims=2048", device=DEV, reps=3,
+        scene=sc))
+    if not (sweep["ok"]
+            and sweep["default"]["hits"] == ORACLE_HITS_REFERENCE_TREE):
+        raise AssertionError("sweep_chain: a config's hits differ from the "
+                             "default's, or the default's from the oracle")
+
+    def entry_on_card():
+        fn, args = entry(device=DEV)
+        t, pid = fn(*args)
+        fn_c, args_c = entry(device="cpu")
+        t_c, pid_c = fn_c(*args_c)
+        return dict(rays=t.numel(), hits=int(torch.isfinite(t).sum()),
+                    equal_to_cpu=same((t.cpu(), pid.cpu()), (t_c, pid_c)))
+
+    ent = tool("entry", entry_on_card)
+    if not ent["equal_to_cpu"]:
+        raise AssertionError("entry(): the card's hits differ from the CPU's")
+    tool("dryrun_multichip", lambda: dryrun_multichip(PAR_RANKS, DEV))
+    total = {}
+    for per_tool in launches.values():
+        for k, v in per_tool.items():
+            total[k] = total.get(k, 0) + v
+    for name in ("check_oracle", "profile_pure", "sweep_chain"):
+        for k in (kernels.WIDE_TREELET, kernels.COLLECT):
+            if not launches[name].get(k.name):
+                raise AssertionError(f"phase 20: {name} never launched "
+                                     f"{k.name}")
+    res = dict(seconds=time.perf_counter() - t_phase, tool_seconds=secs,
+               launches=launches, launches_total=total, results=out,
+               card=card_line())
+    with open(os.path.join(OUT_DIR, "phase20.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    log(f"# phase 20 on {res['card']} in {res['seconds']:.1f} s; launches "
+        f"{total}; results in chiprun_out/phase20.json")
+    return res
 
 
 def sync() -> None:
@@ -1880,6 +2012,28 @@ def run() -> dict:
     log(f"# B3 work at G={plan.G}: {b3w['levels']} levels, "
         f"{b3w['open_nodes']} open nodes, {b3w['lanes']} lanes binned, "
         f"{b3w['split_lanes']} partitioned, {b3w['ops']} float operations")
+    # the "bfs" variant: one B3 launch and the queue row, against the
+    # plain version with the queue replayed on the host
+    kernels.reset_launch_counts()
+    bfs_out = gk.group_forest_build(pf, plan.counts, variant="bfs", **b3_kw)
+    sync()
+    bfs_launches = launch_counts()
+    row3, queued = bfs_queue_plain(b3_ref[1], plan.G, plan.NCAP,
+                                   cfg.min_leaf_size)
+    bfs_ref = (b3_ref[0], row3, *b3_ref[2:])
+    err["b3bfs"] = float((bfs_out[0][fin] - bfs_ref[0][fin]).abs().max())
+    diff = {k: int((bits(a) != bits(b)).sum()) for k, a, b in
+            zip(("nbf", "nbi", "src", "cnt"), bfs_out, bfs_ref)}
+    log(f"# B3 variant bfs vs plain (queue replayed on the host): differing "
+        f"elements {diff}; launches {bfs_launches}; {queued} queued slots "
+        f"(open nodes "
+        f"{b3w['open_nodes']}); rows 0-2 equal the ls variant's: "
+        f"{same(bfs_out[1][:3], b3_out[1][:3])}")
+    if not (same(bfs_out, bfs_ref)
+            and bfs_launches == {kernels.GROUP_BUILD.name: 1}
+            and queued == b3w["open_nodes"]):
+        raise AssertionError("B3's bfs variant and its plain version differ, "
+                             "or it did not launch B3 once")
 
     # ---- 5. the build path, through B3 and through its plain version --
     kernels.reset_launch_counts()
@@ -2127,7 +2281,10 @@ def run() -> dict:
             ("b3_kernel", lambda: gk.group_forest_build(
                 pf, plan.counts, **b3_kw), 10, b3_out),
             ("b3_plain", lambda: gk.group_forest_build_ref(
-                pf, plan.counts, **b3_kw), 2, b3_out)):
+                pf, plan.counts, **b3_kw), 2, b3_out),
+            ("b3bfs_kernel", lambda: gk.group_forest_build(
+                pf, plan.counts, variant="bfs", **b3_kw), 10, bfs_out),
+            ("b3bfs_plain", lambda: bfs_plain(pf, plan, b3_kw), 2, bfs_out)):
         ms, last = time_ms(fn, n)
         if not same(last, ref):
             raise AssertionError(f"timed {name} output diverged")
@@ -2180,6 +2337,7 @@ def run() -> dict:
                          OPS_WIDE_STEP * asteps)
     b3_in = 3 * plan.dim * int(plan.counts.sum()) * pf.element_size()
     bounds["b3"] = bound(b3_in + nbytes(plan.counts, *b3_out), b3w["ops"])
+    bounds["b3bfs"] = bounds["b3"]  # the same outputs; row 3 is in nbi
     log(f"# B1 round 1 visits {b1_cols // 256} of {tl.table_cols.shape[0]} x "
         f"{tl.table_cols.shape[1]} table columns; B3 reads {b3_in} bytes of "
         f"{nbytes(pf)} staged")
@@ -2243,6 +2401,11 @@ def run() -> dict:
     del big_sc, big_tl
     print(json.dumps({"tools": {k: t19[k] for k in (
         "seconds", "tool_seconds", "launches_total", "card")}}), flush=True)
+
+    # ---- 20. the last five tools and the driver entry ---------------
+    t20 = last_tools_phase(WideScene(tris, tree, flat, rays))
+    print(json.dumps({"tools20": {k: t20[k] for k in (
+        "seconds", "tool_seconds", "launches", "card")}}), flush=True)
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n, **extra):
@@ -2284,6 +2447,12 @@ def run() -> dict:
         entry(kernels.GROUP_BUILD, "bvh_tpu_torch/csrc/group_build.cu",
               "bvh_tpu/build/group_kernel.py:383", "b3",
               launches[kernels.GROUP_BUILD.name]),
+        entry(kernels.GROUP_BUILD, "bvh_tpu_torch/csrc/group_build.cu",
+              "bvh_tpu/build/group_kernel.py:77", "b3bfs",
+              bfs_launches[kernels.GROUP_BUILD.name],
+              name=f"{kernels.GROUP_BUILD.name} (variant bfs)",
+              row3="bvh_tpu_torch/build/group_kernel.py bfs_queue_row",
+              shape="phase 4's full 262K staging; ms: B3 and the queue row"),
         entry(kernels.COLLECT_SUPER, "bvh_tpu_torch/csrc/collect.cu",
               "bvh_tpu/traverse/wide_treelet.py:1158", "b4",
               b4["launches"][kernels.COLLECT_SUPER.name],

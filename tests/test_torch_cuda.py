@@ -7,7 +7,8 @@ inverted rays mixed in, their stacks overflowing and their SIMT
 counts, phase A2 (B4, on the super rows `sup_cols`: no pairs, one pair,
 a single-pair super, every super of a ray, stacks of 1 and 2, a
 `max_new` of 1) and the two-level render, the group build (B3) on groups that reach each of its
-branches on its warp path and its CTA path, and the profiling tools' kernels (T6 column fetch, T5 wide
+branches on its warp path and its CTA path (both variants, "bfs" with its
+queue row), and the profiling tools' kernels (T6 column fetch, T5 wide
 step probe, T1 B1's ablation variants), and the sharded mini-tree build on two gloo ranks that share the card. They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
@@ -258,6 +259,27 @@ def test_group_build_kernel_equals_plain(case):
         assert torch.equal(_bits(g), _bits(w))
     assert got[3].tolist() == want[3].tolist()
     assert int(got[3].max()) > 1 or max(sizes) <= 2
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_build_bfs_equals_plain(case):
+    """variant="bfs": one B3 launch, and all four outputs, the BFS queue
+    row 3 included, equal to the plain BFS version (the plain build on
+    the CPU, its queue row written there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    P, sizes, kw, build_kw = GROUP_CASES[case]
+    pf, sz = group_build_case(sizes, P, seed=len(sizes), **kw)
+    before = kernels.GROUP_BUILD.launches
+    got = gk.group_forest_build(torch.from_numpy(pf).cuda(),
+                                torch.from_numpy(sz).cuda(), dim=3, P=P,
+                                variant="bfs", **build_kw)
+    assert kernels.GROUP_BUILD.launches == before + 1
+    want = gk.group_forest_build(torch.from_numpy(pf), torch.from_numpy(sz),
+                                 dim=3, P=P, variant="bfs", **build_kw)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g).cpu(), _bits(w))
+    assert int((got[1][3] != 0).sum()) > 0 or max(sizes) <= 2
 
 
 def test_group_build_at_max_p():
