@@ -46,12 +46,37 @@ TOP_STACK_MAX = 64
 WIDE_STACK_MAX = 256
 BINARY_STACK_MAX = 128
 PROBE_STACK_MAX = 32
+# The 19 comparators of the reference's `_sort8`, in its order, as 6
+# layers of disjoint pairs; kernel T5 is compiled with them (each lane
+# of a ray runs them on the ray's 8 keys).
+SORT8_LAYERS = (((0, 1), (2, 3), (4, 5), (6, 7)),
+                ((0, 2), (1, 3), (4, 6), (5, 7)),
+                ((1, 2), (5, 6)),
+                ((0, 4), (1, 5), (2, 6), (3, 7)),
+                ((2, 4), (3, 5)),
+                ((1, 2), (3, 4), (5, 6)))
+
+
+def sort8_partner_words() -> list[int]:
+    """Each layer of SORT8_LAYERS as one word: nibble c holds lane c's
+    partner, lane c itself where the layer has no pair of c."""
+    words = []
+    for layer in SORT8_LAYERS:
+        partner = list(range(8))
+        for a, b in layer:
+            partner[a], partner[b] = b, a
+        words.append(sum(p << (4 * c) for c, p in enumerate(partner)))
+    return words
+
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v", f"-DBVH_TOP_STACK_MAX={TOP_STACK_MAX}",
               f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}",
               f"-DBVH_BINARY_STACK_MAX={BINARY_STACK_MAX}",
-              f"-DBVH_PROBE_STACK_MAX={PROBE_STACK_MAX}"]
+              f"-DBVH_PROBE_STACK_MAX={PROBE_STACK_MAX}",
+              *(f"-DBVH_SORT8_LAYER{i}={w:#010x}u"
+                for i, w in enumerate(sort8_partner_words()))]
 
 
 def build_shared_library(command, sources, hashed, stem: str) -> str:
@@ -137,6 +162,8 @@ _SIGNATURES = {
                                 _VP, _VP, _VP, _VP],
     # table, C, rays, B, sort8, chains, stack_depth, iters, out, stream
     "bvh_wide_step_probe": [_VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    # C, B, sort8, chains, stack_depth, out[4]
+    "bvh_wide_step_probe_launch": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     # cols, int8, width (rows_pad), P, idx, B, iters, out, stream
     "bvh_column_fetch": [_VP, _I, _I, _I, _VP, _I, _I, _VP, _VP],
     # pf, sizes, G, P, NCAP, min_leaf, max_leaf, log_cluster, cost_ratio,
@@ -217,9 +244,23 @@ def binary_traverse_occupancy() -> int:
     return out.value
 
 
+def wide_step_probe_launch(C: int, B: int, sort8: bool, chains: int,
+                           stack_depth: int) -> dict[str, int]:
+    """The launch kernel T5 makes on the current device for these
+    arguments: threads a block, blocks, dynamic shared memory bytes
+    (the staged table and the stacks) and blocks an SM."""
+    out = (_I * 4)()
+    err = library().bvh_wide_step_probe_launch(C, B, int(sort8), chains,
+                                               stack_depth, out)
+    if err != 0:
+        raise RuntimeError(f"bvh_wide_step_probe_launch: CUDA error {err}")
+    return dict(zip(("block", "grid", "smem", "per_sm"), out))
+
+
 def ptxas_figures(fragment: str) -> dict[str, dict[str, int]]:
-    """From the compiler's report: registers, stack frame and spill
-    bytes of every entry function whose mangled name holds `fragment`."""
+    """From the compiler's report: registers, static shared memory,
+    stack frame and spill bytes of every entry function whose mangled
+    name holds `fragment`."""
     out: dict[str, dict[str, int]] = {}
     name = None
     for line in build_log().splitlines():
@@ -240,6 +281,9 @@ def ptxas_figures(fragment: str) -> dict[str, dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem"] = int(m.group(1))
     return out
 
 

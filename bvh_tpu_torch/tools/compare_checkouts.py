@@ -1,9 +1,9 @@
-"""Kernels B4, B5, B6 and T6 of several checkouts of this repo, timed on
-one card in one call, each checkout in a process of its own, in the
+"""Kernels B4, B5, B6, T5 and T6 of several checkouts of this repo, timed
+on one card in one call, each checkout in a process of its own, in the
 order given (name one twice to bracket another: A B B A):
 
-    python -m bvh_tpu_torch.tools.compare_checkouts [--kernels b4,b5,b6,t6]
-        DIR [DIR ...]
+    python -m bvh_tpu_torch.tools.compare_checkouts
+        [--kernels b4,b5,b6,t5,t6] DIR [DIR ...]
 
 A checkout is a directory that holds `bvh_tpu_torch/` and
 `chip_smoke.py`, such as an earlier commit unpacked with `git archive`
@@ -24,13 +24,18 @@ package, builds its kernels, and times:
   `build_default(MEDIUM)`, 1,048,576 rays, closest hit, fast slab) per
   dim, in coherence order and unsorted, as phase 14 times it
   (`chip_smoke.time_ms`: the mean of 10 calls after one), three times;
+- T5 on `hitting_inputs` with sort8, one chain and 512 iterations, at
+  `chip_smoke.py`'s timed B = 2,048, C = 128 (checked against its plain
+  version) and at `FULL_CARD`'s 262,144 lanes: the device's own time,
+  as above;
 - T6 at its tool's shapes in both dtypes, and the window product beside
   it: the device's own time, as above. A checkout whose T6 reads the
   [rows, P] table (one without `column_copy`) has its kernel launched
   without its wrapper, whose idx range check waits for the device.
-Each process checks T6 against its plain version and prints a digest of
-B4's, B5's and B6's outputs, so that outputs equal across checkouts
-show equal digests, and ends with one JSON line of its times.
+Each process checks T5 and T6 against their plain versions and prints
+a digest of B4's, B5's, B6's and T5's outputs, so that outputs equal
+across checkouts show equal digests, and ends with one JSON line of its
+times.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 HEAD_START_CYCLES = 2_000_000  # as tools/timing.py
 REPS = 21
-KERNELS = ("b4", "b5", "b6", "t6")
+KERNELS = ("b4", "b5", "b6", "t5", "t6")
 INPUTS = os.path.join("_archive", "b45_inputs.npz")
 
 
@@ -119,6 +124,34 @@ def time_b6(smoke) -> dict:
               f"({', '.join(f'{x:.4f}' for x in runs)}), "
               f"{res[dim]['unsorted_ms']:.4f} unsorted; outputs "
               f"{res[dim]['digest']}", flush=True)
+    return res
+
+
+def time_t5() -> dict:
+    """T5 at the timed config and at FULL_CARD's lanes, sort8, one chain,
+    512 iterations, on inputs that hit."""
+    import torch
+
+    from bvh_tpu_torch.tools import probe_tpu as t5
+
+    res = {}
+    kw = dict(sort8=True, chains=1, stack_depth=t5.STACK_DEPTH, iters=t5.LO)
+    for name, B, C in (("timed", 2048, 128),
+                       ("full_card", *t5.FULL_CARD[:2])):
+        table, rays = (x.cuda() for x in t5.hitting_inputs(B, C))
+
+        def fn():
+            return t5.wide_step_probe(table, rays, **kw)
+
+        ms, last = queued_ms(fn)
+        if name == "timed":
+            ref = t5.wide_step_probe_ref(table, rays, **kw)
+            if not torch.equal(last.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError("T5 differs from its plain version")
+        res[name] = dict(ms=ms, digest=digest(last))
+        print(f"# T5 {name} (B={B}, C={C}): {ms:.4f} ms device time "
+              f"(median of {REPS}, queued); outputs {res[name]['digest']}",
+              flush=True)
     return res
 
 
@@ -317,6 +350,8 @@ def one(tree: str, kernels: list[str], inputs: str) -> None:
                 out["b5"] = time_b5(chip_smoke, z)
     if "b6" in kernels:
         out["b6"] = time_b6(chip_smoke)
+    if "t5" in kernels:
+        out["t5"] = time_t5()
     if "t6" in kernels:
         out["t6"] = time_t6()
     print(json.dumps(out), flush=True)

@@ -5,9 +5,13 @@ kernel: the cost of one synthetic wide-node step per iteration as a
 function of lane count B and table width C, the cost of the 8-way
 sorting network, and whether interleaving independent chains hides
 latency (`make_kernel`, :61-140). Kernel `wide_step_probe`
-(csrc/probes.cu) runs the same step, one thread per lane: fetch column
-`top` of a [64, C] table, 8 slab tests, words from rows 48-55, keys by
-entry t, optionally `_sort8`, one push and one pop, then
+(csrc/probes.cu) runs the same step on 8 threads for each of the
+tool's lanes (one a child), on the table staged once a block in shared
+memory: fetch
+column `top` of a [64, C] table, 8 slab tests, words from rows 48-55,
+keys by entry t, optionally `_sort8` (the 19 comparators of
+`kernels.SORT8_LAYERS`, run by every lane of a ray on its 8 gathered
+keys), one push and one pop, then
 top = (popped + words[1] + it) floor-mod C and acc += keys[0].
 
 The cost per iteration is (t(8192 iterations) - t(512)) / 7680, per
@@ -75,6 +79,27 @@ def hitting_inputs(B: int, C: int, seed: int = 0):
     return torch.from_numpy(table), torch.from_numpy(rays)
 
 
+def tie_inputs(B: int, C: int, seed: int = 0):
+    """`hitting_inputs` where the children of a column share boxes: each
+    child copies the box of child 0, 1 or 2, so that equal keys (equal
+    entry t, or the miss key) reach the sorting network, and a quarter
+    of the columns hold boxes behind every ray (every key the miss
+    key). The words stay distinct per child, so the order that the
+    network leaves among equal keys shows in words[0] and words[1]."""
+    table, rays = hitting_inputs(B, C, seed)
+    rng = np.random.default_rng(seed + 1)
+    t = table.numpy().copy()
+    boxes = t[0:48].reshape(8, 6, C)
+    src = rng.integers(0, 3, (8, C))
+    boxes = boxes[src, :, np.arange(C)[None, :]]          # [8, C, 6]
+    boxes = np.transpose(boxes, (0, 2, 1))                 # [8, 6, C]
+    behind = rng.random(C) < 0.25
+    boxes[:, 0::2, behind] = -10.0
+    boxes[:, 1::2, behind] = -9.0
+    t[0:48] = boxes.reshape(48, C)
+    return torch.from_numpy(t), rays
+
+
 def wide_step_probe_ref(table, rays, *, sort8: bool, chains: int,
                         stack_depth: int, iters: int,
                         hit_share: list | None = None):
@@ -132,7 +157,9 @@ def wide_step_probe(table, rays, *, sort8: bool, chains: int,
                     stack_depth: int, iters: int):
     """Kernel `wide_step_probe` for CUDA tensors, the plain version for
     CPU tensors. table [64, C] f32; rays [8, B] f32 (origin rows 0-2,
-    direction rows 3-5). Returns [8, B] f32."""
+    direction rows 3-5). Returns [8, B] f32. The kernel stages the table
+    in a block's shared memory, 272 bytes a column, and raises where it
+    does not fit (C above about 800 on an H100)."""
     if rays.device.type == "cpu":
         return wide_step_probe_ref(table, rays, sort8=sort8, chains=chains,
                                    stack_depth=stack_depth, iters=iters)
@@ -143,10 +170,10 @@ def wide_step_probe(table, rays, *, sort8: bool, chains: int,
         raise ValueError(f"wide_step_probe: chains must be 1, 2 or 4 and "
                          f"stack_depth in [1, {kernels.PROBE_STACK_MAX}]")
     if (table.dtype != torch.float32 or table.dim() != 2
-            or table.shape[0] != ROWS or not table.is_contiguous()
-            or table.device != rays.device):
+            or table.shape[0] != ROWS or table.shape[1] < 1
+            or not table.is_contiguous() or table.device != rays.device):
         raise ValueError(f"wide_step_probe: table must be a contiguous "
-                         f"[{ROWS}, C] float32 tensor on {rays.device}")
+                         f"[{ROWS}, C >= 1] float32 tensor on {rays.device}")
     if (rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 8
             or not rays.is_contiguous()):
         raise ValueError("wide_step_probe: rays must be a contiguous [8, B] "
@@ -188,16 +215,19 @@ def us_per_iter(table, rays, sort8, chains, device, n=5) -> tuple:
     return (ms[HI] - ms[LO]) / (HI - LO) * 1e3, ms[LO]
 
 
-def probe_kernels(device="cuda", n=5, configs=CONFIGS + [FULL_CARD]) -> list:
-    """Every config's cost per iteration on the tool's inputs. Returns
-    [(B, C, sort8, chains, us per iteration)]."""
+def probe_kernels(device="cuda", n=5, configs=CONFIGS + [FULL_CARD],
+                  mhz: float | None = None) -> list:
+    """Every config's cost per iteration on the tool's inputs, and, given
+    the SM clock `mhz`, in SM cycles. Returns [(B, C, sort8, chains, us
+    per iteration)]."""
     rng = np.random.default_rng(0)
     results = []
     for B, C, sort8, chains in configs:
         table, rays = (x.to(device) for x in tool_inputs(B, C, rng))
         us, ms_lo = us_per_iter(table, rays, sort8, chains, device, n)
+        cycles = f", {us * mhz:7.1f} cycles" if mhz else ""
         log(f"# T5 B={B:6d} C={C:4d} sort8={int(sort8)} chains={chains}: "
-            f"{us:8.4f} us/iter ({us / chains:8.4f} us/iter/chain) "
+            f"{us:8.4f} us/iter{cycles} ({us / chains:8.4f} us/iter/chain) "
             f"[launch + {LO} iterations: {ms_lo:.3f} ms]")
         results.append((B, C, sort8, chains, us))
     return results

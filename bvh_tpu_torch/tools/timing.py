@@ -126,6 +126,22 @@ def first_then_median(name: str, fn, device,
     return first_ms, statistics.median(ts) if ts else first_ms, ref
 
 
+def sm_clock_mhz(fn, ms_per_call: float, busy_ms: float = 400.0) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while the card runs
+    `fn`: about `busy_ms` of calls are queued, the clock is read while
+    they run, then the stream is drained."""
+    n = max(1, int(busy_ms / max(ms_per_call, 1e-3)))
+    torch.cuda.synchronize()
+    for _ in range(n):
+        fn()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
 def timed(name: str, fn, ref, device, n: int = 5,
           queued: bool = False) -> float:
     """`time_calls`, with the last output guarded against `ref`."""

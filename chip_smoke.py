@@ -117,11 +117,16 @@ exits non-zero):
    21) and the column copy's time; T5 wide-step probe bit for bit
    against its plain version at 512 iterations on four of
    tools/probe_tpu.py's configs (and one
-   on inputs where about half the slab tests hit), then the cost per
-   iteration of all 12 configs and one that fills the card, and the
-   glue's sorts and gathers at 1M rows; T1: on the chain table B1, its
-   plain version and each ablation variant equal on every lane with
-   active steps = depth, then each variant's cost per step;
+   on inputs where about half the slab tests hit), at 64 iterations on
+   those inputs and on inputs whose children share boxes (ties in the
+   sorting network) at C 128 and 512, chains 1, 2 and 4 and stack
+   depths 1, 24 and 32; its time (the device's own and the host loop),
+   the SM clock under it and its cycles a step, its ptxas figures and
+   launch shape, then the cost per iteration of all 12 configs and one
+   that fills the card, and the glue's sorts and gathers at 1M rows;
+   T1: on the chain table B1, its plain version and each ablation
+   variant equal on every lane with active steps = depth, then each
+   variant's cost per step;
 18. `par/` on two gloo ranks spawned on the one card (NCCL refuses two
    ranks on one card; gloo takes device tensors, copying them through
    the host itself): `ParallelExecutor(mesh).reduce` of the
@@ -254,6 +259,15 @@ F64_CHECK = 256  # every 256th ray against the brute-force minimum
 # launches whose median each T1 time is (a launch is 0.05-0.4 ms, so
 # the tool's 5 leave its per-step difference noisy)
 T1_B, T1_P, T1_REPS = 1024, 384, 21
+# T5's checks beyond the tool's configs (phase 17): (inputs, B, C,
+# sort8, chains, stack_depth), each bit for bit at T5_CHECK_ITERS
+T5_CHECK_ITERS = 64
+T5_CHECKS = (("hitting", 2048, 512, True, 4, 32),
+             ("hitting", 1000, 128, True, 2, 1),
+             ("ties", 2048, 128, True, 1, 24),
+             ("ties", 2048, 512, True, 2, 32),
+             ("ties", 1000, 128, False, 4, 1),
+             ("ties", 2048, 128, True, 1, 1))
 # Phase 18: par/ on gloo ranks that share the card (NCCL refuses two
 # ranks on one card), a ray count they do not divide, and the plain
 # wavefront's time past which the traversal check takes every 4th ray
@@ -1476,6 +1490,7 @@ def tool_kernels_phase() -> dict:
     from bvh_tpu_torch.tools import ablate_kernel as t1
     from bvh_tpu_torch.tools import probe_int8_fetch as t6
     from bvh_tpu_torch.tools import probe_tpu as t5
+    from bvh_tpu_torch.tools.timing import sm_clock_mhz
 
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
@@ -1504,7 +1519,9 @@ def tool_kernels_phase() -> dict:
                            library_ms=r6[d]["window_ms"])
                    for d in ("bf16", "int8")},
         floor_ms=r6["floor_ms"])
-    # T5: bit for bit at 512 iterations on four of the tool's configs
+    # T5: bit for bit at 512 iterations on four of the tool's configs,
+    # then at T5_CHECK_ITERS on inputs that hit and on inputs whose
+    # children share boxes, across C, chains and stack depths
     rng = np.random.default_rng(0)
     for B, C, sort8, chains in ((2048, 128, False, 1), (2048, 128, True, 1),
                                 (2048, 128, False, 2), (8192, 128, True, 2)):
@@ -1514,24 +1531,59 @@ def tool_kernels_phase() -> dict:
             f"{t5.LO} iterations, the tool's inputs: kernel equal to its "
             f"plain version on every lane; slab hit share "
             f"{r['hit_share']:.4f}")
+    for kind, B, C, sort8, chains, depth in T5_CHECKS:
+        make = t5.hitting_inputs if kind == "hitting" else t5.tie_inputs
+        table, prays = (x.to(DEV) for x in make(B, C))
+        r = t5.check_config(table, prays, sort8, chains, iters=T5_CHECK_ITERS,
+                            stack_depth=depth)
+        log(f"# T5 B={B} C={C} sort8={int(sort8)} chains={chains} "
+            f"stack_depth={depth}, {T5_CHECK_ITERS} iterations, {kind} "
+            f"inputs: kernel equal to its plain version on every lane; "
+            f"slab hit share {r['hit_share']:.4f}")
     table, prays = (x.to(DEV) for x in t5.hitting_inputs(2048, 128))
     r = t5.check_config(table, prays, True, 1, iters=t5.LO)
     log(f"# T5 B=2048 C=128 sort8=1 chains=1, {t5.LO} iterations, inputs "
         f"that hit: kernel equal to its plain version; slab hit share "
         f"{r['hit_share']:.4f}")
     kw = dict(sort8=True, chains=1, stack_depth=t5.STACK_DEPTH, iters=t5.LO)
-    ms5, last = time_ms(lambda: t5.wide_step_probe(table, prays, **kw), 10)
+
+    def call5():
+        return t5.wide_step_probe(table, prays, **kw)
+
+    host5, last = time_ms(call5, 10)
+    ms5 = device_ms(call5, r["out"])
     plain5, plast = time_ms(lambda: t5.wide_step_probe_ref(
         table, prays, **kw), 1)
     if not (same(last, r["out"]) and same(plast, r["out"])):
         raise AssertionError("timed T5 output diverged")
+    # the clock under the same kernel, read during HI-iteration calls
+    # (fewer launches than as many LO-iteration ones)
+    mhz = sm_clock_mhz(lambda: t5.wide_step_probe(
+        table, prays, **{**kw, "iters": t5.HI}), ms5 * t5.HI / t5.LO)
     B5_, C5_ = prays.shape[1], table.shape[1]
-    out["t5"] = dict(ms=ms5, plain_ms=plain5, bound=bound(
-        nbytes(table, prays, r["out"]), OPS_WIDE_STEP * B5_ * t5.LO),
-        per_iter=t5.probe_kernels(DEV), library=t5.probe_library(DEV))
+    launch5 = {f"B={b_} C={c_} sort8=1 chains=1":
+               kernels.wide_step_probe_launch(c_, b_, True, 1, t5.STACK_DEPTH)
+               for b_, c_ in ((B5_, C5_), (2048, 512), t5.FULL_CARD[:2])}
+    ptx5 = kernels.ptxas_figures("wide_step_probe")
+    for name, fig in sorted(ptx5.items()):
+        log(f"# T5 ptxas {name}: {fig}")
+    log(f"# T5 launches (block, grid, dynamic smem bytes, blocks an SM): "
+        f"{launch5}")
+    per_iter = t5.probe_kernels(DEV, mhz=mhz)
+    out["t5"] = dict(
+        ms=ms5, host_loop_ms=host5, plain_ms=plain5, bound=bound(
+            nbytes(table, prays, r["out"]), OPS_WIDE_STEP * B5_ * t5.LO),
+        sm_clock_mhz=mhz, cycles_per_step=ms5 * 1e3 * mhz / t5.LO,
+        per_iter=per_iter, cycles_per_iter={
+            f"{b_},{c_},{int(s_)},{k_}": us * mhz
+            for b_, c_, s_, k_, us in per_iter},
+        launch=launch5, ptxas=ptx5, library=t5.probe_library(DEV))
     log(f"# T5 at B={B5_} C={C5_} sort8=1 chains=1, {t5.LO} iterations, "
-        f"inputs that hit: kernel {ms5:.4f} ms, plain {plain5:.3f} ms, "
-        f"bound {out['t5']['bound'][0]:.5f} ms ({out['t5']['bound'][1]})")
+        f"inputs that hit: kernel {ms5:.4f} ms (the device's own time, "
+        f"median of 21; host loop {host5:.4f} ms), plain {plain5:.3f} ms, "
+        f"bound {out['t5']['bound'][0]:.5f} ms ({out['t5']['bound'][1]}); "
+        f"SM clock {mhz:.0f} MHz under it: "
+        f"{out['t5']['cycles_per_step']:.1f} cycles a step")
     # T1: the chain check, then each variant's cost per step
     r1 = t1.run(T1_B, T1_P, DEV, n=T1_REPS)
     full = r1["checks"][T1_P - 16]["out"]
@@ -2505,7 +2557,15 @@ def run() -> dict:
                    "tools/probe_tpu.py:147",
                    {kernels.WIDE_STEP_PROBE.name:
                     t17["launches"][kernels.WIDE_STEP_PROBE.name]},
-                   0.0, t17["t5"], us_per_iter=t17["t5"]["per_iter"]),
+                   0.0, t17["t5"], us_per_iter=t17["t5"]["per_iter"],
+                   timing=("ms: the device's own time, queued behind a "
+                           "head start, median of 21; host_loop_ms: the "
+                           "mean of 10 calls through the wrapper"),
+                   host_loop_ms=t17["t5"]["host_loop_ms"],
+                   sm_clock_mhz=t17["t5"]["sm_clock_mhz"],
+                   cycles_per_step=t17["t5"]["cycles_per_step"],
+                   cycles_per_iter=t17["t5"]["cycles_per_iter"],
+                   launch=t17["t5"]["launch"]),
         tool_entry("T6 column_fetch", "bvh_tpu_torch/csrc/probes.cu",
                    "tools/probe_int8_fetch.py:65",
                    {kernels.COLUMN_FETCH.name:

@@ -800,24 +800,57 @@ def test_column_fetch_kernel_edges(dtype, rows, iters):
     assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("B, C, sort8, chains", [(2048, 128, True, 1),
-                                                 (1024, 512, False, 4)])
-@pytest.mark.parametrize("inputs", ["tool", "hitting"])
-def test_wide_step_probe_kernel_equals_plain(B, C, sort8, chains, inputs):
-    """T5 at 64 iterations, bit for bit, on the tool's inputs and on
-    inputs where about half the slab tests hit."""
+@pytest.mark.parametrize("B, C, sort8, chains, stack_depth", [
+    (2048, 128, True, 1, 24), (1024, 512, False, 4, 24),
+    # B not a multiple of a block's 16 rays: the last group runs past B
+    (1000, 128, True, 2, 24),
+    # C = 512 (136 KB of staged table: dynamic shared memory), and C
+    # not a power of two (the general floor modulo)
+    (1000, 512, True, 1, 32), (333, 100, True, 4, 24),
+    (2048, 128, True, 1, 1), (1000, 128, False, 2, 32)])
+@pytest.mark.parametrize("inputs", ["tool", "hitting", "ties"])
+def test_wide_step_probe_kernel_equals_plain(B, C, sort8, chains,
+                                            stack_depth, inputs):
+    """T5 at 64 iterations, bit for bit, on the tool's inputs, on inputs
+    where about half the slab tests hit, and on inputs whose children
+    share boxes (equal keys reach the sorting network); one launch
+    counted each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from bvh_tpu_torch.tools import probe_tpu as tp
 
     table, rays = (tp.tool_inputs(B, C, np.random.default_rng(0))
-                   if inputs == "tool" else tp.hitting_inputs(B, C))
+                   if inputs == "tool" else tp.hitting_inputs(B, C)
+                   if inputs == "hitting" else tp.tie_inputs(B, C))
     before = kernels.WIDE_STEP_PROBE.launches
-    res = tp.check_config(table.cuda(), rays.cuda(), sort8, chains, iters=64)
+    res = tp.check_config(table.cuda(), rays.cuda(), sort8, chains, iters=64,
+                          stack_depth=stack_depth)
     assert kernels.WIDE_STEP_PROBE.launches == before + 1
     assert not res["out"][chains:].any()
-    if inputs == "hitting":
+    if inputs != "tool":
         assert 0.2 <= res["hit_share"] <= 0.8
+
+
+def test_wide_step_probe_launch_shape():
+    """T5's launch: 128-thread blocks at the tool's widths, one block an
+    SM at most as many as the rays need; larger blocks once the rays
+    fill the card; the staged table and the stacks in the dynamic
+    shared memory; a table too wide for a block refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.tools import probe_tpu as tp
+
+    small = kernels.wide_step_probe_launch(128, 2048, True, 1, 24)
+    assert small["block"] == 128 and small["grid"] == 2048 // 16
+    assert small["smem"] == 128 * 272 + 16 * 24 * 4
+    wide = kernels.wide_step_probe_launch(512, 262_144, True, 4, 32)
+    assert wide["smem"] == 512 * 272 + wide["block"] // 8 * 4 * 32 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert wide["grid"] == sms * wide["per_sm"]
+    table, rays = tp.hitting_inputs(64, 4096)
+    with pytest.raises(RuntimeError, match="wide_step_probe"):
+        tp.wide_step_probe(table.cuda(), rays.cuda(), sort8=True, chains=1,
+                           stack_depth=24, iters=4)
 
 
 @pytest.mark.parametrize("depth", [4, 40])
