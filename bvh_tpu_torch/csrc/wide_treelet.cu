@@ -150,8 +150,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 wide_treelet_kernel(const float* __restrict__ cols, int P,
                     const int* __restrict__ tid, const float* __restrict__ rays,
                     int L, int stack_depth, float* __restrict__ out_f,
-                    int* __restrict__ out_i, int* __restrict__ next) {
+                    int* __restrict__ out_i, int* __restrict__ next,
+                    const int* __restrict__ count) {
     const int lane = threadIdx.x & 31;
+    // the pairs to traverse: the first *count of the L, or all of them
+    const int n = count == nullptr ? L : min(max(*count, 0), L);
     const float inf = __int_as_float(0x7f800000);
     const float4* const tables = reinterpret_cast<const float4*>(cols);
     int stack[kStackMax];
@@ -172,10 +175,10 @@ wide_treelet_kernel(const float* __restrict__ cols, int P,
             int first = 0;
             if (lane == 0) first = atomicAdd(next, __popc(idle));
             first = __shfl_sync(kFull, first, 0);
-            more = first + __popc(idle) < L;
+            more = first + __popc(idle) < n;
             if (!active) {
                 i = first + __popc(idle & ((1u << lane) - 1u));
-                if (i < L) {
+                if (i < n) {
 #pragma unroll
                     for (int a = 0; a < 3; ++a) {
                         o[a] = rays[a * L + i];
@@ -346,7 +349,7 @@ wide_treelet_kernel(const float* __restrict__ cols, int P,
 template <bool kAnyHit, bool kRobust, int kAblate = 0>
 int launch(const float* cols, int P, const int* tid, const float* rays, int L,
            int stack_depth, float* out_f, int* out_i, int* next,
-           cudaStream_t stream) {
+           const int* count, cudaStream_t stream) {
     // enough warps to fill the current card, each taking pairs until none
     // is left
     int grid = 0;
@@ -358,7 +361,7 @@ int launch(const float* cols, int P, const int* tid, const float* rays, int L,
     if (err != cudaSuccess) return static_cast<int>(err);
     wide_treelet_kernel<kAnyHit, kRobust, kAblate>
         <<<blocks < grid ? blocks : grid, kBlock, 0, stream>>>(
-            cols, P, tid, rays, L, stack_depth, out_f, out_i, next);
+            cols, P, tid, rays, L, stack_depth, out_f, out_i, next, count);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,23 +371,28 @@ int launch(const float* cols, int P, const int* tid, const float* rays, int L,
 // [8, L] f32 (org, dir, tmin, tmax); outputs out_f [3, L] f32 (t, u, v)
 // and out_i [4, L] i32 (prim position or -1, active steps, stack
 // high-water mark, overflow flag); next: one int of scratch (the work
-// counter, zeroed on the stream before the launch). Returns the first
-// CUDA error of the launch, or cudaGetLastError() after it.
+// counter, zeroed on the stream before the launch); count: null, or one
+// int on the device, read by the kernel: only pairs 0 .. *count - 1 are
+// traversed and the outputs of the later pairs are left unwritten (a
+// render at fixed width sorts its valid pairs first, so that the
+// persistent warps stop where they end). Returns the first CUDA error of
+// the launch, or cudaGetLastError() after it.
 extern "C" int bvh_wide_treelet_traverse(const float* cols, int T, int P,
                                          const int* tid, const float* rays,
                                          int L, int any_hit, int robust,
                                          int stack_depth, float* out_f,
-                                         int* out_i, int* next, void* stream) {
+                                         int* out_i, int* next,
+                                         const int* count, void* stream) {
     (void)T;
     if (L <= 0) return static_cast<int>(cudaGetLastError());
     auto s = static_cast<cudaStream_t>(stream);
     if (any_hit && robust)
-        return launch<true, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        return launch<true, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, count, s);
     if (any_hit)
-        return launch<true, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        return launch<true, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, count, s);
     if (robust)
-        return launch<false, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-    return launch<false, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        return launch<false, true>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, count, s);
+    return launch<false, false>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, count, s);
 }
 
 // The ablation variants of the closest-hit, fast-form kernel, as
@@ -403,10 +411,10 @@ extern "C" int bvh_wide_treelet_ablate(const float* cols, int T, int P,
         return static_cast<int>(cudaErrorInvalidValue);
     if (L <= 0) return static_cast<int>(cudaGetLastError());
     switch (variant) {
-        case 0: return launch<false, false, 0>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-        case 1: return launch<false, false, 1>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-        case 2: return launch<false, false, 2>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-        case 3: return launch<false, false, 3>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
-        default: return launch<false, false, 4>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, s);
+        case 0: return launch<false, false, 0>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, nullptr, s);
+        case 1: return launch<false, false, 1>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, nullptr, s);
+        case 2: return launch<false, false, 2>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, nullptr, s);
+        case 3: return launch<false, false, 3>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, nullptr, s);
+        default: return launch<false, false, 4>(cols, P, tid, rays, L, stack_depth, out_f, out_i, next, nullptr, s);
     }
 }

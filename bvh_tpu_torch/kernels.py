@@ -153,9 +153,10 @@ _SIGNATURES = {
     "bvh_sphere_traverse": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP,
                             _VP, _VP, _VP],
     # table_cols, T, P, tid, rays, L, any_hit, robust, stack_depth,
-    # out_f, out_i, next (work counter), stream
+    # out_f, out_i, next (work counter), count (the valid pairs, one int
+    # on the device, or null), stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
-                                  _VP, _VP, _VP, _VP],
+                                  _VP, _VP, _VP, _VP, _VP],
     # table_cols, T, P, tid, rays, L, variant, stack_depth, out_f, out_i,
     # next, stream
     "bvh_wide_treelet_ablate": [_VP, _I, _I, _VP, _VP, _I, _I, _I,
@@ -255,6 +256,36 @@ def wide_step_probe_launch(C: int, B: int, sort8: bool, chains: int,
     if err != 0:
         raise RuntimeError(f"bvh_wide_step_probe_launch: CUDA error {err}")
     return dict(zip(("block", "grid", "smem", "per_sm"), out))
+
+
+# the node types of CUgraphNodeType (cuda.h), in their order
+_GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                     "wait_event", "event_record", "semaphore_signal",
+                     "semaphore_wait", "mem_alloc", "mem_free", "mem_op",
+                     "conditional")
+
+
+def graph_node_counts(graph: int) -> dict[str, int]:
+    """The nodes of a captured CUDA graph by type, and their total: the
+    graph is a cudaGraph_t handle (`torch.cuda.CUDAGraph(keep_graph=True)
+    .raw_cuda_graph()`), read with libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(_VP(graph), None, ctypes.byref(n))
+    nodes = (_VP * n.value)()
+    if err == 0:
+        err = cuda.cuGraphGetNodes(_VP(graph), nodes, ctypes.byref(n))
+    out = {"total": n.value}
+    for node in nodes[:n.value]:
+        kind = _I(0)
+        err = err or cuda.cuGraphNodeGetType(_VP(node), ctypes.byref(kind))
+        name = (_GRAPH_NODE_TYPES[kind.value]
+                if kind.value < len(_GRAPH_NODE_TYPES) else str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    if err != 0:
+        raise RuntimeError(f"graph_node_counts: libcuda error {err}")
+    return out
 
 
 def ptxas_figures(fragment: str) -> dict[str, dict[str, int]]:

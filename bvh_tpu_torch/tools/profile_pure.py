@@ -16,12 +16,14 @@ time: the durations of the kernels the trace records, summed (copies
 and sets apart), with its share of the events' time, the device's busy
 union and the host syncs in the trace.
 
-The render cannot be captured in a CUDA graph, the torch counterpart of
-the JAX tool's chain: its round loop reads the ready-ray count on the
-host every round (`rsel.numel()`, traverse/wide_treelet.py:1066) and
-the stack marks after each B1 pass (:1080-1081). The JAX tool's
-`pack_kernel_table` and `_render_jit` are TPU-only (bf16 table splits,
-the jitted render) and left out on purpose. At 262,144 triangles and
+The entry point's render cannot be captured in a CUDA graph, the
+torch counterpart of the JAX tool's chain: its round loop reads the
+ready-ray count on the host every round (`ready_rays`' nonzero in
+traverse/wide_treelet.py) and the stack marks after each B1 pass.
+`wide_treelet_render_chain` captures `_render_fixed`, the render at
+fixed widths, instead (`chip_smoke.py` phase 21). The JAX tool's
+`pack_kernel_table` (bf16 table splits) is TPU-only and left out on
+purpose. At 262,144 triangles and
 1024 x 1024 rays the hits must be the oracle's 81,790 (bench.py:28-42);
 every timed render's last output equals the first render's.
 

@@ -26,9 +26,11 @@ the prim position). The entry point itself,
 way in the same run, right after the default config, and must give
 the same hits, so that each config reads against the render a user
 calls. The JAX tool's TPU tiling keys (`block`, `tail_block`,
-`top_block`, `rc_div`) have no counterpart and are refused by name; its `wide_treelet_render_chain` and
-`steady_rate` (renders chained in one jitted program) are left out on
-purpose, and so is its `--any-hit`: an any-hit render keeps the hit
+`top_block`, `rc_div`) have no counterpart and are refused by name.
+Each config is timed through the eager render, not as a render chain
+(`wide_treelet_render_chain` with `cli/steady.py`'s `steady_rate`, the
+port's counterparts of its chained renders). Its `--any-hit` is left
+out on purpose: an any-hit render keeps the hit
 it finds first, and which one that is can change with k, so its
 configs cannot be held to the default's hits bit for bit.
 

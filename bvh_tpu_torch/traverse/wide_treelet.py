@@ -24,9 +24,14 @@ each that kernel B1 reads. A render then runs in two phases:
   merge into each ray's best hit by first-j strict-min, which keeps the
   reference's near-to-far rule (bvh.h:137-149).
 
-The render loop ports what the reference's `_render_jit` computes, not its
-TPU schedule: rays are independent, so the TPU's chunking, tail tiers,
-run padding and DMA windows only schedule work and are left out.
+The entry point's render loop (`_render`) ports what the reference's
+`_render_jit` computes, not its TPU schedule: rays are independent, so
+the TPU's chunking, run padding and DMA windows only schedule work and
+are left out. It reads the ready rays' count on the host every round.
+`_render_fixed` ports `_render_jit`'s fixed-capacity schedule (one
+compaction, round 1, tail rounds at a fixed width) with every shape
+fixed up front, so that `wide_treelet_render_chain` captures the whole
+render as one CUDA graph; its hits equal `_render`'s bit for bit.
 
 Closest-hit results are exact; among exactly tied primitives the winner
 may differ from another implementation's, because the 8-way sorting
@@ -724,10 +729,15 @@ def traverse_pairs_ref(table, tid, rays, *, any_hit: bool, robust: bool,
 
 
 def traverse_pairs_plain(table_cols, tid, rays, *, any_hit: bool,
-                         robust: bool, stack_depth: int, ablate: int = 0):
+                         robust: bool, stack_depth: int, ablate: int = 0,
+                         count=None):
     """`traverse_pairs_ref` on the column tables [T, P, 64],
     on any device: the plain version in the layout that `traverse_pairs`
-    and the render's `traverse` argument take."""
+    and the render's `traverse` argument take. With `count`, as
+    `traverse_pairs` takes it, the pairs from count on are no pairs."""
+    if count is not None:
+        lane = torch.arange(tid.shape[0], device=tid.device)
+        tid = torch.where(lane < count, tid, -1)
     return traverse_pairs_ref(table_cols.transpose(1, 2), tid, rays,
                               any_hit=any_hit, robust=robust,
                               stack_depth=stack_depth, ablate=ablate)
@@ -760,17 +770,27 @@ def check_pair_inputs(name, table_cols, tid, rays, stack_depth: int) -> None:
 
 
 def traverse_pairs(table_cols, tid, rays, *, any_hit: bool, robust: bool,
-                   stack_depth: int):
+                   stack_depth: int, count=None):
     """Wide treelet traversal of (ray, treelet) pairs over the column
     tables [T, P, 64] (`WideTreelets.table_cols`): the CUDA kernel for
     CUDA tensors, the plain version (`traverse_pairs_plain`) for CPU
-    tensors. Outputs as `traverse_pairs_ref`."""
+    tensors. Outputs as `traverse_pairs_ref`.
+    `count`: None, or a [1] int32 tensor on the rays' device holding the
+    number of pairs to traverse, read by the kernel on the device: the
+    pairs from count on are skipped and their outputs left unwritten
+    (the plain version gives them a miss)."""
     if rays.device.type == "cpu":
         return traverse_pairs_plain(table_cols, tid, rays, any_hit=any_hit,
-                                    robust=robust, stack_depth=stack_depth)
+                                    robust=robust, stack_depth=stack_depth,
+                                    count=count)
     if rays.device.type != "cuda":
         raise ValueError(f"traverse_pairs: unsupported device {rays.device}")
     check_pair_inputs("traverse_pairs", table_cols, tid, rays, stack_depth)
+    if count is not None and (count.dtype != torch.int32
+                              or count.numel() != 1
+                              or count.device != rays.device):
+        raise ValueError("traverse_pairs: count must be a [1] int32 tensor "
+                         f"on {rays.device}")
     L = tid.shape[0]
     out_f = torch.empty((3, L), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((4, L), dtype=torch.int32, device=rays.device)
@@ -778,7 +798,8 @@ def traverse_pairs(table_cols, tid, rays, *, any_hit: bool, robust: bool,
     kernels.WIDE_TREELET.launch(
         table_cols.data_ptr(), table_cols.shape[0], table_cols.shape[1],
         tid.data_ptr(), rays.data_ptr(), L, int(any_hit), int(robust),
-        stack_depth, out_f.data_ptr(), out_i.data_ptr(), work.data_ptr())
+        stack_depth, out_f.data_ptr(), out_i.data_ptr(), work.data_ptr(),
+        None if count is None else count.data_ptr())
     return out_f, out_i
 
 
@@ -807,12 +828,25 @@ def wide_treelet_caps(tl: WideTreelets, portals_per_round: int = 4) -> dict:
                 mps=mps, max_new=max_new)
 
 
+def wide_treelet_perf(tl: WideTreelets) -> dict:
+    """The render's throughput knobs, as the reference picks them by
+    scene size (wide_treelet.py:2047-2065): portals a ready ray and
+    round; `tail_div`, which sets a tail round's default width
+    `tail_cap = sel_cap // tail_div`; and `block`, `tail_block`, the
+    widths `sel_cap` and `tail_cap` round up to. A wrong pick is slow,
+    never wrong."""
+    if tl.table.shape[0] >= 2048:
+        return dict(portals_per_round=16, tail_div=4, block=256,
+                    tail_block=128)
+    return dict(portals_per_round=PORTALS_PER_ROUND, tail_div=8, block=512,
+                tail_block=128)
+
+
 def portals_per_round(tl: WideTreelets) -> int:
-    """Portals expanded per ready ray and round: the reference's
-    `wide_treelet_perf` (wide_treelet.py:2060-2065), 16 for scenes of
-    2,048 treelets or more, else 4. It sets the work per round only;
-    the results do not depend on it."""
-    return 16 if tl.table.shape[0] >= 2048 else PORTALS_PER_ROUND
+    """Portals expanded per ready ray and round (`wide_treelet_perf`):
+    16 for scenes of 2,048 treelets or more, else 4. It sets the work
+    per round only; the results do not depend on it."""
+    return wide_treelet_perf(tl)["portals_per_round"]
 
 
 def octants(rays8) -> torch.Tensor:
@@ -854,10 +888,16 @@ def sort_portals(ptid, ptent, stats) -> Portals:
     the reference's sort is not declared stable; only ties differ."""
     cnt = stats[0]
     sel = torch.nonzero(cnt > 0).squeeze(1)
-    tent, order = torch.sort(ptent[:, sel], dim=0, stable=True)
-    tid = torch.gather(ptid[:, sel].to(torch.int64), 0, order)
+    tid, tent = sort_columns(ptid, ptent, sel)
     return Portals(sel, tid, tent, cnt, int(stats[1].max()) if stats.numel()
                    else 0, bool(stats[2].any()))
+
+
+def sort_columns(ptid, ptent, sel):
+    """The portal records of rays `sel`, each ray's sorted ascending by
+    entry t, stably: (tid [MP, len(sel)] int64, tent f32)."""
+    tent, order = torch.sort(ptent[:, sel], dim=0, stable=True)
+    return torch.gather(ptid[:, sel].to(torch.int64), 0, order), tent
 
 
 def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
@@ -947,13 +987,20 @@ def ready_rays(portals: Portals, cur, tmax, bpos, *, any_hit: bool):
     shrinks, so a ray whose next portal starts past its tmax is done;
     an any-hit ray is done at its first hit.
     Returns (live [Rc] bool, rsel: indices of the ready rays)."""
-    mp = portals.tid.shape[0]
+    live, ready = ready_mask(portals.tid, portals.tent, cur, tmax, bpos,
+                             any_hit=any_hit)
+    return live, torch.nonzero(ready).squeeze(1)
+
+
+def ready_mask(tid, tent, cur, tmax, bpos, *, any_hit: bool):
+    """`ready_rays` as masks over the columns of the sorted portals
+    tid, tent [MP, Rc]: (live, ready), both [Rc] bool."""
+    mp = tid.shape[0]
     live = bpos < 0 if any_hit else torch.ones_like(cur, dtype=torch.bool)
     curc = cur.clamp(max=mp - 1)[None, :]
-    p_tid = torch.where(cur < mp, portals.tid.gather(0, curc)[0], -1)
-    p_t = portals.tent.gather(0, curc)[0]
-    ready = live & (p_tid >= 0) & (p_t <= tmax)
-    return live, torch.nonzero(ready).squeeze(1)
+    p_tid = torch.where(cur < mp, tid.gather(0, curc)[0], -1)
+    p_t = tent.gather(0, curc)[0]
+    return live, live & (p_tid >= 0) & (p_t <= tmax)
 
 
 def round_pairs(portals: Portals, cur, tmax, live, rays_c, octant, rsel,
@@ -1000,8 +1047,24 @@ def merge_round(best, tmax, cur, rsel, validk, pk, pr, out_f, out_i, *,
     res_u[pk, pr] = out_f[1]
     res_v[pk, pr] = out_f[2]
     res_pos[pk, pr] = out_i[0].to(i64)
-    n_bt, n_bu, n_bv, n_pos = bt[rsel], bu[rsel], bv[rsel], bpos[rsel]
-    for j in range(k):
+    n_bt, n_bu, n_bv, n_pos = merge_first_j(
+        (bt[rsel], bu[rsel], bv[rsel], bpos[rsel]), validk,
+        (res_t, res_u, res_v, res_pos), any_hit=any_hit)
+    if not any_hit:
+        tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
+    bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
+    cur[rsel] += k
+
+
+def merge_first_j(best, validk, res, *, any_hit: bool):
+    """Fold the results res = (t, u, v, pos), each [k, W], of a window
+    of k portals into the best hits best = (t, u, v, pos), each [W]:
+    the first j that is better (closest hit: a strictly smaller t) or
+    that hits (any-hit, while the ray has no hit) wins, where
+    validk [k, W] (:1702-1724). Returns the new (t, u, v, pos)."""
+    n_bt, n_bu, n_bv, n_pos = best
+    res_t, res_u, res_v, res_pos = res
+    for j in range(validk.shape[0]):
         if any_hit:
             upd = validk[j] & (res_pos[j] >= 0) & (n_pos < 0)
         else:
@@ -1010,10 +1073,7 @@ def merge_round(best, tmax, cur, rsel, validk, pk, pr, out_f, out_i, *,
         n_bu = torch.where(upd, res_u[j], n_bu)
         n_bv = torch.where(upd, res_v[j], n_bv)
         n_pos = torch.where(upd, res_pos[j], n_pos)
-    if not any_hit:
-        tmax[rsel] = torch.minimum(tmax[rsel], n_bt)
-    bt[rsel], bu[rsel], bv[rsel], bpos[rsel] = n_bt, n_bu, n_bv, n_pos
-    cur[rsel] += k
+    return n_bt, n_bu, n_bv, n_pos
 
 
 def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
@@ -1150,15 +1210,18 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                robust=False, top_stack=None, stack_depth=None,
                max_portals=None, max_rounds=None, mps=None, max_new=None,
                auto_caps=True, return_diag=False,
-               collect_super=collect_super_pairs):
+               collect_super=collect_super_pairs, k=None):
     """`wide_treelet_intersect_tris` with phase A, the pair traversal and
     phase A2 given as `collect`, `traverse` and `collect_super`: the
     kernels' dispatchers, or their plain versions (`collect_portals_ref`,
     `traverse_pairs_plain`, `collect_super_pairs_plain`) to run the
     render without the kernels on any device. `traverse` is given the
     column tables `tl.table_cols`, `collect_super` the super rows
-    `tl.sup_cols`."""
-    auto = wide_treelet_caps(tl, portals_per_round(tl))
+    `tl.sup_cols`. `k`: portals a ready ray and round (default
+    `portals_per_round(tl)`)."""
+    if k is None:
+        k = portals_per_round(tl)
+    auto = wide_treelet_caps(tl, k)
     caps = dict(
         top_stack=top_stack if top_stack is not None else tl.top_depth + 1,
         stack_depth=(stack_depth if stack_depth is not None
@@ -1175,7 +1238,8 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     for attempt in range(8):
         bt, bu, bv, pos, cnt, diag = render_at_caps(
             tl, packed, caps, any_hit=any_hit, robust=robust,
-            collect=collect, traverse=traverse, collect_super=collect_super)
+            collect=collect, traverse=traverse, collect_super=collect_super,
+            k=k)
         bumps = {}
         if diag["max_cnt"] > caps["max_portals"]:
             bumps["max_portals"] = _up_pow2(diag["max_cnt"])
@@ -1216,3 +1280,352 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     if return_diag:
         return hit, dict(diag, caps=caps)
     return hit
+
+
+# ------------------------------------------- the render as one program
+# `_render_fixed`'s observations, in the order of its stats row: phase
+# A's largest portal count and its stack overflow, B1's stack overflow,
+# the rays that recorded a portal, a ray still ready after the last
+# round, and the rounds in which any ray was ready
+FIXED_STATS = ("max_cnt", "top_ovf", "stack_ovf", "nready", "pending",
+               "rounds_used")
+_STATE = ("bt", "bu", "bv", "bpos", "tmax", "cur")
+
+
+def _fixed_round(tl: WideTreelets, rays_c, octant, tid, tent, state, ready,
+                 sel, *, k, any_hit, robust, stack_depth, traverse):
+    """One pair round of `_render_fixed` over the compact rays `sel` [W]:
+    the window of k portals from each ready ray's cursor (:1726-1738), at
+    the fixed width [k, W]. The pairs sort by treelet * 8 + octant, the
+    windows' dead slots (key T * 8) last; B1 takes the whole list and
+    stops at the valid pairs' count; the results merge as `merge_round`
+    merges them (`merge_first_j`). `state` (bt, bu, bv, bpos, tmax,
+    cur: [Rc] each) is updated at `sel` in place. Returns B1's stack
+    overflow over the valid pairs (a 0-d bool tensor)."""
+    dev = tid.device
+    mp, Rc = tid.shape
+    W = sel.shape[0]
+    L = k * W
+    bt, bu, bv, bpos, tmax, cur = (state[n][sel] for n in _STATE)
+    rdy = ready[sel]
+    idx = cur[None, :] + torch.arange(k, device=dev)[:, None]     # [k, W]
+    inb = idx < mp
+    flat = idx.clamp(max=mp - 1) * Rc + sel[None, :]
+    wtid = torch.where(inb, tid.reshape(-1)[flat], -1)
+    wtt = torch.where(inb, tent.reshape(-1)[flat], float("inf"))
+    validk = (wtid >= 0) & (wtt <= tmax[None, :]) & rdy[None, :]
+    dead = tl.table_cols.shape[0] * WIDTH
+    key, perm = torch.sort(torch.where(
+        validk, wtid * WIDTH + octant[sel][None, :], dead).reshape(-1))
+    nvalid = validk.sum().to(torch.int32).reshape(1)
+    col = perm % W
+    ptid = torch.where(key < dead, key // WIDTH, -1).to(torch.int32)
+    prays = rays_c[:, sel[col]]
+    prays[7] = tmax[col]  # pairs carry the ray's current tmax
+    out_f, out_i = traverse(tl.table_cols, ptid, prays, any_hit=any_hit,
+                            robust=robust, stack_depth=stack_depth,
+                            count=nvalid)
+    # back to window order; the slots past the valid pairs hold what B1
+    # left there, and validk masks them
+    res_f = torch.empty_like(out_f).scatter_(1, perm[None].expand(3, L), out_f)
+    res_pos = torch.empty_like(out_i[0]).scatter_(0, perm, out_i[0])
+    n_bt, n_bu, n_bv, n_pos = merge_first_j(
+        (bt, bu, bv, bpos), validk,
+        (*res_f.view(3, k, W), res_pos.view(k, W).to(torch.int64)),
+        any_hit=any_hit)
+    if not any_hit:
+        tmax = torch.where(rdy, torch.minimum(tmax, n_bt), tmax)
+    for name, v in zip(_STATE, (n_bt, n_bu, n_bv, n_pos, tmax,
+                                cur + k * rdy)):
+        state[name].index_copy_(0, sel, v)
+    valid = torch.arange(L, device=dev) < nvalid
+    return ((out_i[3] != 0) & valid).any()
+
+
+def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
+                  robust: bool, k: int, sel_cap: int, tail_cap: int,
+                  rounds: int, collect=collect_portals,
+                  traverse=traverse_pairs):
+    """The render of [8, R] packed rays at fixed capacities, the
+    counterpart of the reference's one-program render `_render_jit`
+    (wide_treelet.py:1444): every shape follows from R, `caps` (as
+    `render_at_caps` takes them), `sel_cap`, `tail_cap`, `k` and
+    `rounds`, and no device value is read on the host, so the whole
+    render can be captured as one CUDA graph.
+
+    - Phase A (B2) over all R rays; then one compaction: the rays sorted
+      by (no portal, ray), the first `sel_cap` kept (:1536-1539).
+    - Round 1 over that compact set; then `rounds - 1` tail rounds, each
+      over the first `tail_cap` of the compact rays sorted by (not
+      ready, ray) (:1923-1927). A ready ray past the cap waits a round.
+    - A round's pairs are a fixed [k, width] window (`_fixed_round`),
+      B1 told their count on the device.
+
+    Every ray goes through the windows of the eager `_render` at the
+    same k, in the same order and with the same tmax; only the round in
+    which a window runs may differ. So t, u, v and pos equal the eager
+    render's bit for bit whenever no overflow is flagged. A round with
+    no ready ray does no useful work.
+
+    Returns (t, u, v, pos [R], cnt [R], stats): stats is the [6] int64
+    row `FIXED_STATS`, each overflow a flag for the caller to read once
+    after the program; a flagged run's hits are not to be used
+    (`fixed_overflow`). Two-level scenes raise NotImplementedError."""
+    if tl.sup_cols.shape[0] > 0:
+        raise NotImplementedError(
+            "the one-program render takes single-level scenes; phase A2 "
+            "(kernel B4) inside it is the next slice, ROADMAP A18 (R2)")
+    R = packed.shape[1]
+    dev = packed.device
+    f32, i64 = torch.float32, torch.int64
+    ptid, ptent, stats = collect(
+        tl.top_node_t, packed, tl.top_root, robust=robust,
+        stack_depth=caps["top_stack"], max_portals=caps["max_portals"])
+    cnt = stats[0]
+    lanes = torch.arange(R, device=dev)
+    has = cnt > 0
+    Rc = min(sel_cap, R)
+    sel = torch.sort(torch.where(has, lanes, lanes + R)).indices[:Rc]
+    tid, tent = sort_columns(ptid, ptent, sel)
+    rays_c = packed[:, sel]
+    octant = octants(rays_c)
+    state = dict(bt=torch.full((Rc,), float("inf"), dtype=f32, device=dev),
+                 bu=torch.zeros(Rc, dtype=f32, device=dev),
+                 bv=torch.zeros(Rc, dtype=f32, device=dev),
+                 bpos=torch.full((Rc,), -1, dtype=i64, device=dev),
+                 tmax=rays_c[7].clone(),
+                 cur=torch.zeros(Rc, dtype=i64, device=dev))
+    every = torch.arange(Rc, device=dev)
+    AC = min(tail_cap, Rc)
+    stack_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    used = torch.zeros((), dtype=i64, device=dev)
+    for r in range(rounds):
+        _, ready = ready_mask(tid, tent, state["cur"], state["tmax"],
+                              state["bpos"], any_hit=any_hit)
+        used += ready.any()
+        rsel = every if r == 0 else torch.sort(
+            torch.where(ready, every, every + Rc)).indices[:AC]
+        stack_ovf |= _fixed_round(
+            tl, rays_c, octant, tid, tent, state, ready, rsel, k=k,
+            any_hit=any_hit, robust=robust,
+            stack_depth=caps["stack_depth"], traverse=traverse)
+    _, ready = ready_mask(tid, tent, state["cur"], state["tmax"],
+                          state["bpos"], any_hit=any_hit)
+    out_t = torch.full((R,), float("inf"), dtype=f32, device=dev)
+    out_u = torch.zeros(R, dtype=f32, device=dev)
+    out_v = torch.zeros(R, dtype=f32, device=dev)
+    out_pos = torch.full((R,), -1, dtype=i64, device=dev)
+    for out, name in ((out_t, "bt"), (out_u, "bu"), (out_v, "bv"),
+                      (out_pos, "bpos")):
+        out.index_copy_(0, sel, state[name])
+    flags = torch.stack([x.to(i64) for x in (
+        cnt.max(), stats[2].any(), stack_ovf, has.sum(), ready.any(),
+        used)])
+    return out_t, out_u, out_v, out_pos, cnt, flags
+
+
+def fixed_overflow(stats, caps: dict, sel_cap: int, rounds: int) -> dict:
+    """The capacities a `_render_fixed` run overflowed, from its stats
+    row read on the host (`FIXED_STATS`), each with the value to re-run
+    at, as `_intersect` raises them: max_portals to the reported need,
+    the stacks doubled, sel_cap to the rays that recorded a portal,
+    rounds doubled. A phase-A overflow alone is reported when there is
+    one: the rounds after it ran on cut portal lists."""
+    s = dict(zip(FIXED_STATS, (int(x) for x in stats)))
+    bumps = {}
+    if s["max_cnt"] > caps["max_portals"]:
+        bumps["max_portals"] = _up_pow2(s["max_cnt"])
+    if s["top_ovf"]:
+        bumps["top_stack"] = 2 * caps["top_stack"]
+    if bumps:
+        return bumps
+    if s["stack_ovf"]:
+        bumps["stack_depth"] = 2 * caps["stack_depth"]
+    if s["nready"] > sel_cap:
+        bumps["sel_cap"] = s["nready"]
+    if s["pending"]:
+        bumps["rounds"] = 2 * rounds
+    return bumps
+
+
+def padded_rays(rays: Ray, Rp: int) -> torch.Tensor:
+    """`pack_rays`, padded to Rp rays with inactive ones (tmin 1 > tmax
+    0, direction +x), as the reference pads its ray buffer."""
+    packed = pack_rays(rays)
+    R = packed.shape[1]
+    if Rp == R:
+        return packed
+    out = torch.zeros((8, Rp), dtype=torch.float32, device=packed.device)
+    out[:, :R] = packed
+    out[6, R:] = 1.0
+    out[3, R:] = 1.0
+    return out
+
+
+# the reference chain's keywords that tile the TPU: they raise here
+_TPU_KEYS = ("top_block", "interpret", "packed_table", "max_runs", "tail_k",
+             "k2", "a2_cap")
+_CHAIN_KEYS = ("portals_per_round", "block", "tail_block", "top_stack",
+               "stack_depth", "max_portals", "max_rounds", "mps", "max_new",
+               "sup_stack", "sel_cap", "tail_cap", "rounds", "any_hit",
+               "robust", "auto_caps")
+
+
+class RenderChain:
+    """k renders of one ray buffer in a row, run by calling the chain
+    (see `wide_treelet_render_chain`). Its fields: `k`; the verified
+    `caps`, `sel_cap`, `tail_cap` and `rounds` of its `_render_fixed`;
+    `eager` (the verified eager render's rounds and pairs); `packed`,
+    the [8, Rp] ray buffer the renders feed forward; `stats`, the last
+    call's `FIXED_STATS` (their maximum over its renders); on a CUDA device
+    `graph`, the captured render, `capture_launches`, the kernels'
+    launches during its capture, and `graph_nodes`, its nodes by type
+    (None on the CPU)."""
+
+    def __init__(self, tl, packed, k, caps, fixed_kw, eager):
+        self.k, self.caps, self.eager, self.packed = k, caps, eager, packed
+        self.sel_cap = fixed_kw["sel_cap"]
+        self.tail_cap = fixed_kw["tail_cap"]
+        self.rounds = fixed_kw["rounds"]
+        self._render = lambda: _render_fixed(tl, packed, caps, **fixed_kw)
+        self._acc = torch.zeros(len(FIXED_STATS), dtype=torch.int64,
+                                device=packed.device)
+        self.graph = self.capture_launches = self.graph_nodes = None
+        self.stats = None
+        if packed.device.type == "cuda":
+            self._capture()
+
+    def _step(self):
+        """One render, the feed-forward and the stats' running maximum.
+        The feed subtracts +0.0, which leaves every ray bit for bit as
+        it was (-0.0 directions too, where adding would flip them), but
+        depends on the render's output (:2379-2396)."""
+        out = self._render()
+        self.packed.sub_(torch.nan_to_num(out[0].min() * 0.0))
+        torch.maximum(self._acc, out[-1], out=self._acc)
+        return out[0]
+
+    def _capture(self):
+        before = {kn.name: kn.launches for kn in kernels.KERNELS}
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph):
+            self._t = self._step()
+        self.graph.instantiate()
+        self.capture_launches = {kn.name: kn.launches - before[kn.name]
+                                 for kn in kernels.KERNELS
+                                 if kn.launches > before[kn.name]}
+        self.graph_nodes = kernels.graph_node_counts(
+            self.graph.raw_cuda_graph())
+
+    def __call__(self) -> torch.Tensor:
+        """Run the k renders (on a CUDA device k replays of the captured
+        render), read the stats once, raise ValueError if any render
+        overflowed, and return the last render's t row [Rp]."""
+        self._acc.zero_()
+        for _ in range(self.k):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._t = self._step()
+        acc = self._acc.tolist()
+        self.stats = dict(zip(FIXED_STATS, acc))
+        bumps = fixed_overflow(acc, self.caps, self.sel_cap, self.rounds)
+        if bumps:
+            raise ValueError(f"wide-treelet render chain overflowed: {bumps} "
+                             f"needed with caps {self.caps}, sel_cap "
+                             f"{self.sel_cap}, rounds {self.rounds}")
+        return self._t.clone()
+
+
+def wide_treelet_render_chain(tl: WideTreelets, rays: Ray, k: int,
+                              **kw) -> RenderChain:
+    """A steady-state probe: a zero-argument callable that runs the whole
+    render k times in a row on one ray buffer and returns the last
+    render's t row [Rp] (the reference's chain, wide_treelet.py:2291).
+
+    On a CUDA device one `_render_fixed` and the feed-forward are
+    captured as one CUDA graph with static buffers, which each call
+    replays k times: no host sync until the stats are read once at the
+    end. On the CPU the same `_render_fixed` runs eagerly k times, with
+    the kernels' plain versions. Each render feeds the buffer forward
+    (`RenderChain._step`), so every render is the same real render.
+
+    Keywords, as the reference's (None takes the default): the caps of
+    `wide_treelet_intersect_tris` (top_stack, stack_depth, max_portals,
+    max_rounds, mps, max_new, sup_stack; pass a verified call's
+    diag["caps"]),
+    `portals_per_round`, `block`, `tail_block`, `sel_cap` (default Rp/4
+    in blocks; Rp is R in blocks), `tail_cap` (default sel_cap //
+    tail_div in tail blocks), `any_hit`, `robust`, `auto_caps`, and
+    `rounds`, the fixed round count. The chain first runs the verified
+    eager render at those caps. Without `rounds` it bounds the fixed
+    schedule's rounds by the eager render's rounds plus its pairs over
+    tail_cap (a tail round either takes tail_cap ready rays or every
+    ready ray), runs `_render_fixed` once so, and keeps the rounds in
+    which a ray was ready. That run's stats are read: an overflowed cap
+    is raised and the run repeated, at most 8 times, as
+    `wide_treelet_intersect_tris` does (with `auto_caps` off it
+    raises). The TPU's tiling keys (top_block, interpret, ...) raise
+    ValueError; scenes with supers raise NotImplementedError."""
+    tpu = sorted(set(kw) & set(_TPU_KEYS))
+    if tpu:
+        raise ValueError(f"wide_treelet_render_chain: {', '.join(tpu)} tile "
+                         "the TPU's kernels and have no meaning here")
+    unknown = sorted(set(kw) - set(_CHAIN_KEYS))
+    if unknown:
+        raise ValueError(f"wide_treelet_render_chain: unknown keys {unknown}")
+    if tl.sup_cols.shape[0] > 0:
+        raise NotImplementedError(
+            "wide_treelet_render_chain takes single-level scenes; phase A2 "
+            "(kernel B4) inside the one-program render is the next slice, "
+            "ROADMAP A18 (R2)")
+    R = rays.tmin.shape[0]
+    if k < 1 or R == 0:
+        raise ValueError("wide_treelet_render_chain: needs k >= 1 and rays")
+
+    def _kw(name, default):
+        v = kw.get(name)
+        return default if v is None else v
+
+    perf = wide_treelet_perf(tl)
+    ppr = _kw("portals_per_round", perf["portals_per_round"])
+    block = _kw("block", perf["block"])
+    tail_block = _kw("tail_block", perf["tail_block"])
+    any_hit, robust = bool(kw.get("any_hit")), bool(kw.get("robust"))
+    auto_caps = _kw("auto_caps", True)
+    Rp = _round_up(R, block)
+    _, diag = _intersect(
+        tl, rays, None, collect_portals, traverse_pairs, any_hit=any_hit,
+        robust=robust, **{c: kw.get(c) for c in (
+            "top_stack", "stack_depth", "max_portals", "max_rounds", "mps",
+            "max_new")}, auto_caps=auto_caps, return_diag=True, k=ppr)
+    caps = dict(diag["caps"])
+    if kw.get("sup_stack") is not None:
+        caps["sup_stack"] = kw["sup_stack"]
+    eager = dict(rounds=diag["rounds"], pairs=diag["pairs"])
+    packed = padded_rays(rays, Rp)
+    sel_cap = _kw("sel_cap", max(block, _round_up(Rp // 4, block)))
+    rounds = kw.get("rounds")
+    for attempt in range(8):
+        sel_cap = min(_round_up(sel_cap, block), Rp)
+        tail_cap = min(_round_up(_kw("tail_cap", max(
+            tail_block, sel_cap // perf["tail_div"])), tail_block), sel_cap)
+        n_rounds = (rounds if rounds is not None
+                    else eager["rounds"] + eager["pairs"] // tail_cap)
+        fixed_kw = dict(any_hit=any_hit, robust=robust, k=ppr,
+                        sel_cap=sel_cap, tail_cap=tail_cap, rounds=n_rounds)
+        stats = _render_fixed(tl, packed, caps, **fixed_kw)[-1].tolist()
+        bumps = fixed_overflow(stats, caps, sel_cap, n_rounds)
+        if not bumps:
+            break
+        if not auto_caps or attempt == 7:
+            raise ValueError(f"wide-treelet render chain overflowed: {bumps} "
+                             f"needed with caps {caps}, sel_cap {sel_cap}, "
+                             f"rounds {n_rounds}")
+        sel_cap = bumps.pop("sel_cap", sel_cap)
+        rounds = bumps.pop("rounds", rounds)
+        caps.update(bumps)
+    if rounds is None:
+        fixed_kw["rounds"] = max(1, stats[FIXED_STATS.index("rounds_used")])
+    return RenderChain(tl, packed, k, caps, fixed_kw, eager)

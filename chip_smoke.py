@@ -176,7 +176,25 @@ exits non-zero):
    to its CPU run) and `dryrun_multichip(2)` on gloo ranks that share
    the card. B1 and B2 must launch in the three render tools; the
    results go to chiprun_out/phase20.json and a `{"tools20": ...}`
-   line before the kernels line.
+   line before the kernels line;
+21. the one-program render on phase 7's 262K tree, primary and shadow
+   rays, with the launch counts reset before and read after each step:
+   a verified eager call and its caps; the render chain
+   (`wide_treelet_render_chain` at k 1: its own verified eager render
+   and `_render_fixed`, then one render captured as a CUDA graph), its
+   t row equal to the entry point's on all 1,048,576 rays (81,790
+   primary hits), B2 and B1 launched during the capture, the graph's
+   nodes by type; `_render_fixed` at the chain's settings under sync
+   debug "error", equal to the eager render bit for bit, with B2 and B1
+   held against their plain versions on the inputs it gave them;
+   `steady_rate` at 16 and 64 renders (the k-64 chain's row equal to
+   the entry point's) beside the entry point's ms; one call of the k-1
+   chain and one of the entry point under torch.profiler (device ops,
+   busy share, host syncs, the kernels' ms, B1's and B2's); then the
+   chain raises NotImplementedError on phase 13's two-level tables. The
+   results go to chiprun_out/phase21.json and a `{"one_program": ...}`
+   line; the kernels line's B1 and B2 entries carry its launches
+   under "one_program".
 
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
@@ -1985,6 +2003,178 @@ def tools_phase(boxes, sc, native_bvh, round1, big_sc, big_tl) -> dict:
     return res
 
 
+def device_trace(fn) -> dict:
+    """One call of `fn` under torch.profiler (CPU and CUDA activity):
+    T2's counts (device ops, busy ms and share of the span, host syncs),
+    the kernels' summed ms, and B1's and B2's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bvh_tpu_torch.tools.profile_pure import kernel_ms
+    from bvh_tpu_torch.tools.profile_r3 import summarize_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    res = summarize_events(events)
+    res["kernel_ms"] = kernel_ms(events) if res["device_ops"] else None
+    for key, fragment in (("b1_ms", "wide_treelet_kernel"),
+                          ("b2_ms", "collect_kernel")):
+        res[key] = sum(e.time_range.elapsed_us() for e in events
+                       if e.device_type == DeviceType.CUDA
+                       and fragment in e.name) / 1e3
+    return res
+
+
+def one_program_phase(tree, flat, tris, big_tl) -> dict:
+    """Phase 21: the one-program render on phase 7's 262K tree, for the
+    primary and the shadow rays: the caps of a verified eager call; the
+    render chain (`wide_treelet_render_chain`, k = 1: its verified
+    `_render_fixed`, then one render captured as a CUDA graph), its t row
+    equal to the entry point's element by element, with the launches of
+    B2 and B1 during the capture and the graph's nodes; `_render_fixed`
+    at the chain's settings under sync debug "error", equal to the eager
+    `_render` at those caps bit for bit, with B2 and B1 held against
+    their plain versions on the inputs it gave them (B1 on its first
+    round's pairs, up to their count); `steady_rate` over chains of 16
+    and 64 renders beside the entry point's ms (host clock, median of
+    7); one call of the k-1 chain and one of the entry point under
+    torch.profiler (`device_trace`); then the chain refuses phase 13's
+    two-level tables."""
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.cli.camera import primary_rays
+    from bvh_tpu_torch.cli.steady import steady_rate
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.io.scenes import scene_camera
+    from bvh_tpu_torch.traverse import collect as col
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    t_phase = time.perf_counter()
+    tl = wt.build_wide_treelets(tree, flat, device=DEV)
+    prim_ids = tree.prim_ids
+    eye, d, up = scene_camera(tris)
+    rays = primary_rays(eye, d, up, SIDE, SIDE, device=DEV)
+    hit = wt.wide_treelet_intersect_tris(tl, rays, prim_ids)
+    light = torch.as_tensor(eye, dtype=torch.float32, device=DEV) + \
+        torch.tensor([0.0, 1.0, 0.0], device=DEV)
+    hitp = rays.org + rays.dir * torch.where(torch.isfinite(hit.t), hit.t,
+                                             0.0)[:, None]
+    srays = Ray.make(hitp, light[None, :] - hitp, tmin=1e-4,
+                     tmax=torch.ones_like(hit.t))
+    res = {"card": card_line()}
+    for name, r, any_hit in (("primary", rays, False),
+                             ("shadow", srays, True)):
+        R = r.tmin.shape[0]
+        kernels.reset_launch_counts()
+        ehit, diag = wt.wide_treelet_intersect_tris(
+            tl, r, prim_ids, any_hit=any_hit, return_diag=True)
+        sync()
+        eager_launches = launch_counts()
+        caps = diag["caps"]
+
+        kernels.reset_launch_counts()
+        chain = wt.wide_treelet_render_chain(tl, r, 1, any_hit=any_hit,
+                                             **caps)
+        t_row = chain()
+        sync()
+        chain_launches = launch_counts()
+        hits = int(torch.isfinite(t_row[:R]).sum())
+        equal = same(t_row[:R], ehit.t)
+
+        seen = {}
+
+        def collect(*a, **kw):
+            seen["b2"] = a, kw
+            return col.collect_portals(*a, **kw)
+
+        def traverse(*a, **kw):
+            seen.setdefault("b1", (a, kw))
+            return wt.traverse_pairs(*a, **kw)
+
+        fixed_kw = dict(any_hit=any_hit, robust=False,
+                        k=wt.portals_per_round(tl), sel_cap=chain.sel_cap,
+                        tail_cap=chain.tail_cap, rounds=chain.rounds)
+        packed = chain.packed.clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fixed = wt._render_fixed(tl, packed, chain.caps, collect=collect,
+                                     traverse=traverse, **fixed_kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats = dict(zip(wt.FIXED_STATS, fixed[-1].tolist()))
+        eager = wt.render_at_caps(tl, packed, chain.caps, any_hit=any_hit,
+                                  robust=False)
+        fixed_equal = same(tuple(fixed[:5]), tuple(eager[:5]))
+        a, kw = seen["b2"]
+        b2_equal = same(col.collect_portals(*a, **kw),
+                        col.collect_portals_ref(*a, **kw))
+        a, kw = seen["b1"]
+        n = int(kw["count"])
+        kf, ki = wt.traverse_pairs(*a, **kw)
+        pf, pi = wt.traverse_pairs_plain(*a, **kw)
+        b1_equal = same((kf[:, :n], ki[:, :n]), (pf[:, :n], pi[:, :n]))
+
+        chains = {}
+
+        def make_chain(k):
+            chains[k] = wt.wide_treelet_render_chain(tl, r, k,
+                                                     any_hit=any_hit, **caps)
+            return chains[k]
+
+        r_s, c_s, t16, t64 = steady_rate(make_chain, 16, 64, reps=3)
+        steady_equal = same(chains[64]()[:R], ehit.t)
+        eager_s = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            wt.wide_treelet_intersect_tris(tl, r, prim_ids, any_hit=any_hit)
+            sync()
+            eager_s.append(time.perf_counter() - t0)
+        eager_s.sort()
+        traces = {"chain_k1": device_trace(chain),
+                  "entry_point": device_trace(
+                      lambda: wt.wide_treelet_intersect_tris(
+                          tl, r, prim_ids, any_hit=any_hit))}
+        res[name] = dict(
+            rays=R, hits=hits, chain_equals_entry_point=equal,
+            fixed_equals_eager=fixed_equal, b2_equals_plain=b2_equal,
+            b1_equals_plain=b1_equal, b1_pairs=[n, int(a[1].shape[0])],
+            steady_chain_equals_entry_point=steady_equal,
+            caps=chain.caps, sel_cap=chain.sel_cap, tail_cap=chain.tail_cap,
+            rounds=chain.rounds, eager=chain.eager, stats=stats,
+            eager_launches=eager_launches, chain_launches=chain_launches,
+            capture_launches=chain.capture_launches,
+            graph_nodes=chain.graph_nodes, steady_ms=r_s * 1e3,
+            fixed_cost_ms=c_s * 1e3, chain16_ms=t16 * 1e3,
+            chain64_ms=t64 * 1e3, entry_point_ms=eager_s[3] * 1e3,
+            entry_point_ms_all=[x * 1e3 for x in eager_s], traces=traces)
+        log(f"# phase 21, {name}: {res[name]}")
+        ok = (equal and fixed_equal and b2_equal and b1_equal and steady_equal
+              and not any(stats[f] for f in ("top_ovf", "stack_ovf",
+                                             "pending"))
+              and all(chain.capture_launches.get(k.name) for k in (
+                  kernels.COLLECT, kernels.WIDE_TREELET))
+              and (any_hit or hits == ORACLE_HITS_REFERENCE_TREE))
+        if not ok:
+            raise AssertionError(f"phase 21, {name}: the one-program render "
+                                 "differs from the entry point or its "
+                                 "kernels from their plain versions")
+    try:
+        wt.wide_treelet_render_chain(big_tl, rays, 1)
+    except NotImplementedError as e:
+        res["two_level_refused"] = str(e)
+    else:
+        raise AssertionError("phase 21: the chain took a two-level scene")
+    res["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT_DIR, "phase21.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    log(f"# phase 21 on {res['card']} in {res['seconds']:.1f} s; results in "
+        "chiprun_out/phase21.json")
+    return res
+
+
 def run() -> dict:
     from bvh_tpu_torch import kernels
     from bvh_tpu_torch.api.native import NativeBvh3f
@@ -2450,7 +2640,7 @@ def run() -> dict:
 
     t19 = tools_phase((mn, mx, cc), WideScene(tris, tree, flat, rays),
                       native_bvh, t3["round_one"], big_sc, big_tl)
-    del big_sc, big_tl
+    del big_sc
     print(json.dumps({"tools": {k: t19[k] for k in (
         "seconds", "tool_seconds", "launches_total", "card")}}), flush=True)
 
@@ -2458,6 +2648,16 @@ def run() -> dict:
     t20 = last_tools_phase(WideScene(tris, tree, flat, rays))
     print(json.dumps({"tools20": {k: t20[k] for k in (
         "seconds", "tool_seconds", "launches", "card")}}), flush=True)
+
+    # ---- 21. the one-program render: the chain as one CUDA graph ------
+    t21 = one_program_phase(tree, flat, tris, big_tl)
+    del big_tl
+    one_program = {name: {k: t21[name][k] for k in (
+        "hits", "rounds", "sel_cap", "tail_cap", "eager", "eager_launches",
+        "capture_launches", "graph_nodes", "steady_ms", "fixed_cost_ms",
+        "entry_point_ms", "traces")} for name in ("primary", "shadow")}
+    print(json.dumps({"one_program": dict(
+        one_program, seconds=t21["seconds"], card=t21["card"])}), flush=True)
     log(f"# card: {card_line()}")
 
     def entry(k, source, replaces, key, n, **extra):
@@ -2481,6 +2681,15 @@ def run() -> dict:
                 "bound_by": m["bound"][1], "library_ms": library_ms,
                 "launches_by_kernel": launches, **extra}
 
+    def chain_launches(k):
+        """Phase 21's launches of kernel k: in one verified eager render,
+        in the chain's run (the verified eager render, the verified
+        `_render_fixed`, the capture), and during the capture alone."""
+        return {name: {"eager_render": t21[name]["eager_launches"].get(
+            k.name, 0), "chain": t21[name]["chain_launches"].get(k.name, 0),
+            "capture": t21[name]["capture_launches"].get(k.name, 0)}
+            for name in ("primary", "shadow")}
+
     err["b5"], err["b4"], err["b6"] = b5["err"], b4["err"], b6["err"]
     for key, d_ in (("b5", b5_262k), ("b4", b4), ("b6", b6)):
         timings[f"{key}_kernel_ms"] = d_["ms"]
@@ -2492,10 +2701,12 @@ def run() -> dict:
     return {"kernels": [
         entry(kernels.COLLECT, "bvh_tpu_torch/csrc/collect.cu",
               "bvh_tpu/traverse/collect.py:25", "b2",
-              launches[kernels.COLLECT.name]),
+              launches[kernels.COLLECT.name],
+              one_program=chain_launches(kernels.COLLECT)),
         entry(kernels.WIDE_TREELET, "bvh_tpu_torch/csrc/wide_treelet.cu",
               "bvh_tpu/traverse/wide_treelet.py:741", "b1",
-              launches[kernels.WIDE_TREELET.name]),
+              launches[kernels.WIDE_TREELET.name],
+              one_program=chain_launches(kernels.WIDE_TREELET)),
         entry(kernels.GROUP_BUILD, "bvh_tpu_torch/csrc/group_build.cu",
               "bvh_tpu/build/group_kernel.py:383", "b3",
               launches[kernels.GROUP_BUILD.name]),
