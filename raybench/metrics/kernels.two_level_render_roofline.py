@@ -1,0 +1,6 @@
+"""`kernels.render_roofline` in the cells of a two-level cut, where it
+moves `mrays_s.two_level`."""
+
+from raybench import harness
+
+read = harness.reader("kernels.render_roofline")
