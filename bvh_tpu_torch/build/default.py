@@ -31,6 +31,7 @@ from bvh_tpu_torch.build.minitree_fast import build_minitree_fast
 from bvh_tpu_torch.build.reinsertion import ReinsertionConfig, optimize_reinsertion
 from bvh_tpu_torch.build.sah import TopDownConfig
 from bvh_tpu_torch.build.sweep import build_sweep
+from bvh_tpu_torch.core import trace
 from bvh_tpu_torch.core.types import Bvh
 
 
@@ -70,6 +71,7 @@ def _use_fast_minitree(bb_min, bb_max, centers) -> bool:
                     for x in (bb_min, bb_max, centers)))
 
 
+@trace.spanned("bvh.build_default")
 def build_default(bb_min, bb_max, centers,
                   config: DefaultConfig | None = None,
                   parallel: bool = True) -> Bvh:

@@ -23,6 +23,7 @@ from bvh_tpu_torch.build.minitree import MiniTreeConfig, _grid_groups
 from bvh_tpu_torch.build.sah import TopDownConfig
 from bvh_tpu_torch.build.sweep import build_sweep
 from bvh_tpu_torch.core import bbox as bbox_ops
+from bvh_tpu_torch.core import trace
 from bvh_tpu_torch.core.types import Bvh, Index
 from bvh_tpu_torch.core.utils import run_stage
 from bvh_tpu_torch.traverse.refit import refit
@@ -125,6 +126,7 @@ def build_minitree_fast(bb_min, bb_max, centers,
     return _build(bb_min, bb_max, centers, config, group_forest_build, stage)
 
 
+@trace.spanned("bvh.minitree")
 def _build(bb_min, bb_max, centers, config, group_build,
            stage=run_stage) -> Bvh:
     """`build_minitree_fast` with the per-group build passed in, so that

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from bvh_tpu_torch.core import bbox as bbox_ops
+from bvh_tpu_torch.core import trace
 from bvh_tpu_torch.core.types import Bvh, Index, make_node_bounds_row
 from bvh_tpu_torch.core.utils import run_stage
 from bvh_tpu_torch.traverse.refit import parents_of
@@ -342,6 +343,7 @@ def iteration_args(bvh: Bvh, config: ReinsertionConfig) -> tuple:
             config.search_stack_depth, config.batch_size_ratio)
 
 
+@trace.spanned("bvh.reinsertion")
 def optimize_reinsertion(bvh: Bvh, config: ReinsertionConfig | None = None,
                          stats: dict | None = None) -> Bvh:
     """Optimize `bvh` by parallel reinsertion (reference: optimize,
@@ -352,7 +354,9 @@ def optimize_reinsertion(bvh: Bvh, config: ReinsertionConfig | None = None,
         config = ReinsertionConfig()
     bounds, index, *rest = iteration_args(bvh, config)
     for _ in range(config.max_iter_count):
-        bounds, index, steps, accepted = _one_iteration(bounds, index, *rest)
+        with trace.span("bvh.reinsertion.iteration"):
+            bounds, index, steps, accepted = _one_iteration(bounds, index,
+                                                            *rest)
         if stats is not None:
             stats.setdefault("steps", []).append(int(steps))
             stats.setdefault("accepted", []).append(int(accepted.sum()))

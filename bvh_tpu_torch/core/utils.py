@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from bvh_tpu_torch.core import trace
+
 # Width-matched signed integer views for bit-level float manipulation.
 # torch's CPU build does not implement uint32 arithmetic, so the bit
 # pattern is carried in the signed type of the same width; two's
@@ -146,5 +148,10 @@ def run_stage(name: str, fn, *args, **kwargs):
     (`minitree_fast.build_minitree_fast`) and a reinsertion iteration
     (`reinsertion._one_iteration`). A profiler passes its own runner in
     its place to time or record each stage by `name`
-    (bvh_tpu_torch/tools/timing.py's `StageTimer`)."""
+    (bvh_tpu_torch/tools/timing.py's `StageTimer`). While a torch
+    profiler records (`core.trace.on()`), the stage runs inside the span
+    "bvh.<name>"; otherwise it is the plain call."""
+    if trace.on():
+        with trace.span("bvh." + name):
+            return fn(*args, **kwargs)
     return fn(*args, **kwargs)

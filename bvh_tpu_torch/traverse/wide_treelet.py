@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from bvh_tpu_torch import kernels
+from bvh_tpu_torch.core import trace
 from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.core.types import INVALID_PRIM_ID, Bvh
 from bvh_tpu_torch.core.utils import run_stage
@@ -257,6 +258,7 @@ def wide_treelet_max_prims(n_prims: int) -> int:
     return 4096 if n_prims >= 2_000_000 else 1024
 
 
+@trace.spanned("bvh.build_wide_treelets")
 def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
                         max_prims: int | None = None,
                         leaf_prims: int = 16,
@@ -273,298 +275,311 @@ def build_wide_treelets(bvh: Bvh, tri_flat, permuted: bool = False,
     4-bit count field).
     `super_prims`: additionally cut the top region at subtrees of
     <= super_prims primitives; None = auto (when the top region exceeds
-    4096 nodes)."""
+    4096 nodes).
+    While a torch profiler records, the call is the span
+    bvh.build_wide_treelets and its host stages the spans bvh.cut.*."""
     if device is None:
         device = bvh.bounds.device
-    tri_np = np.asarray(torch.as_tensor(tri_flat).cpu().numpy(), np.float32)
-    if max_prims is None:
-        max_prims = wide_treelet_max_prims(int(tri_np.shape[0]))
     if not 1 <= leaf_prims <= 60:
         raise ValueError(f"leaf_prims must be in [1, 60], got {leaf_prims}")
     if bvh.dim != 3:
         raise ValueError("the wide-treelet path is specialised for 3D")
 
-    nc = int(bvh.node_count)
-    bounds = np.asarray(bvh.bounds[:nc].cpu().numpy(), np.float32)
-    index = bvh.index[:nc].cpu().numpy().astype(np.uint64)
-    first = (index >> 4).astype(np.int64)
-    count = (index & 15).astype(np.int64)
-    prim_ids = bvh.prim_ids.cpu().numpy().astype(np.int64)
-    inner = count == 0
+    with trace.span("bvh.cut.readback"):
+        tri_np = np.asarray(torch.as_tensor(tri_flat).cpu().numpy(),
+                            np.float32)
+        nc = int(bvh.node_count)
+        bounds = np.asarray(bvh.bounds[:nc].cpu().numpy(), np.float32)
+        index = bvh.index[:nc].cpu().numpy().astype(np.uint64)
+        prim_ids = bvh.prim_ids.cpu().numpy().astype(np.int64)
+    if max_prims is None:
+        max_prims = wide_treelet_max_prims(int(tri_np.shape[0]))
 
-    # ---- subtree prim counts via level-synchronous BFS ---------------
-    levels = [np.asarray([0], np.int64)]
-    frontier = levels[0]
-    while True:
-        fi = frontier[inner[frontier]]
-        if len(fi) == 0:
-            break
-        kids = np.concatenate([first[fi], first[fi] + 1])
-        levels.append(kids)
-        frontier = kids
+    with trace.span("bvh.cut.frontier"):
+        first = (index >> 4).astype(np.int64)
+        count = (index & 15).astype(np.int64)
+        inner = count == 0
 
-    nprims = np.where(inner, 0, count)
-    for lev in reversed(levels):
-        li = lev[inner[lev]]
-        if len(li):
-            nprims[li] = nprims[first[li]] + nprims[first[li] + 1]
-
-    # ---- treelet roots + top region ----------------------------------
-    parent = np.full(nc, -1, np.int64)
-    ii = np.nonzero(inner)[0]
-    parent[first[ii]] = ii
-    parent[first[ii] + 1] = ii
-    is_top = nprims > max_prims  # the top region (always inner nodes)
-    troot = (~is_top) & ((parent < 0) | is_top[np.clip(parent, 0, nc - 1)])
-    troot[0] = not is_top[0]
-    troots = np.nonzero(troot)[0]
-    T = len(troots)
-    tid_of_root = np.full(nc, -1, np.int64)
-    tid_of_root[troots] = np.arange(T)
-
-    # ---- collapse every treelet into wide nodes ----------------------
-    terminal = (~inner) | (nprims <= leaf_prims)
-    wide_tid, wide_local, slot_node, child_local, n_wide, wide_depth = (
-        _collapse_wide(bounds, first, count, troots, np.arange(T), terminal)
-    )
-    W = len(wide_tid)
-
-    # ---- quad leaf assignment ----------------------------------------
-    valid = slot_node >= 0
-    sl = np.clip(slot_node, 0, nc - 1)
-    is_leaf_slot = valid & terminal[sl]
-    lr, lc = np.nonzero(is_leaf_slot)
-    leaf_node = slot_node[lr, lc]
-    # quad columns are assigned per treelet in (wide local id, slot) order
-    order = np.lexsort((lc, wide_local[lr], wide_tid[lr]))
-    lr, lc = lr[order], lc[order]
-    leaf_node = leaf_node[order]
-    leaf_tid = wide_tid[lr]
-    leaf_np = nprims[leaf_node]
-    leaf_nq = -(-leaf_np // QUAD)
-    # exclusive cumsum of nq within each treelet
-    cs = np.cumsum(leaf_nq) - leaf_nq
-    if len(leaf_tid):
-        starts = np.r_[0, np.nonzero(leaf_tid[1:] != leaf_tid[:-1])[0] + 1]
-        base_of_group = cs[starts]
-        leaf_qoff = cs - np.repeat(
-            base_of_group, np.diff(np.r_[starts, len(leaf_tid)]))
-    else:
-        leaf_qoff = cs
-    n_quads = np.bincount(leaf_tid, weights=leaf_nq, minlength=T).astype(np.int64)
-
-    # every leaf slot's subtree prim positions in in-order sequence:
-    # contiguous output ranges, offsets propagated down level by level
-    out_base = np.cumsum(leaf_np) - leaf_np
-    total_out = int(leaf_np.sum())
-    offset = np.full(nc, -1, np.int64)
-    offset[leaf_node] = out_base  # leaf slots are disjoint subtrees
-    frontier = leaf_node[inner[leaf_node]]
-    while len(frontier):
-        left = first[frontier]
-        right = left + 1
-        offset[left] = offset[frontier]
-        offset[right] = offset[frontier] + nprims[left]
-        nxt = np.concatenate([left, right])
-        frontier = nxt[inner[nxt]]
-    ln = np.nonzero((offset >= 0) & ~inner)[0]
-    c = count[ln]
-    tot = int(c.sum())
-    within = np.arange(tot) - np.repeat(np.cumsum(c) - c, c)
-    out = np.empty(total_out, np.int64)
-    out[np.repeat(offset[ln], c) + within] = np.repeat(first[ln], c) + within
-    assert tot == total_out
-
-    P = int(_round_up(max(1, int((n_wide[:T] + n_quads).max())), 128))
-
-    # ---- pack per-treelet combined tables -----------------------------
-    table = np.zeros((max(T, 1), ROWS, P), np.float32)
-    big = np.float32(np.finfo(np.float32).max)
-    col_of_wide = wide_local  # node columns come first
-    vr, vc = np.nonzero(valid)
-    vslot = slot_node[vr, vc]
-    trow = wide_tid[vr]
-    ccol = col_of_wide[vr]
-    b6 = bounds[vslot]  # [k, 6]
-    d6 = np.arange(6)
-    table[trow[:, None], vc[:, None] * 6 + d6[None, :], ccol[:, None]] = b6
-    # empty child slots: empty box (never hit), word 0
-    er, ec = np.nonzero(~valid)
-    if len(er):
-        etrow = wide_tid[er]
-        ecol = col_of_wide[er]
-        empty6 = np.tile(np.asarray([big, -big, big, -big, big, -big],
-                                    np.float32), (len(er), 1))
-        table[etrow[:, None], ec[:, None] * 6 + d6[None, :],
-              ecol[:, None]] = empty6
-
-    # slot words: inner child -> (child column << 4); leaf -> quad word
-    words = np.zeros((W, WIDTH), np.int64)
-    icr, icc = np.nonzero(child_local >= 0)
-    words[icr, icc] = child_local[icr, icc] << 4
-    quad_col_base = n_wide[np.clip(leaf_tid, 0, T - 1)] if T else leaf_tid
-    assert leaf_nq.max(initial=0) <= 15
-    leaf_word = ((quad_col_base + leaf_qoff) << 4) | leaf_nq
-    words[lr, lc] = leaf_word
-    wr = np.repeat(np.arange(W), WIDTH).reshape(W, WIDTH)
-    table[wide_tid[wr.ravel()], 48 + np.tile(np.arange(WIDTH), W),
-          col_of_wide[wr.ravel()]] = words.ravel().astype(np.float32)
-
-    # quad columns: gpos rows default to -1 (padding prims never hit),
-    # then real quads overwrite
-    col_idx = np.arange(P)[None, :]
-    in_quad_region = col_idx >= n_wide[:T, None]  # [T, P]
-    gpos_rows = table[:, 12:13 * QUAD:13, :]  # view of rows 12,25,38,51
-    gpos_rows[...] = np.where(in_quad_region[:, None, :], -1.0, gpos_rows)
-    if len(leaf_tid):
-        qrep = np.repeat(np.arange(len(leaf_tid)), leaf_nq)
-        qk = _cumcount_by(qrep)  # quad index within its leaf
-        qtid = leaf_tid[qrep]
-        oidx = (out_base[qrep][:, None] + qk[:, None] * QUAD
-                + np.arange(QUAD)[None, :])
-        pvalid = oidx < (out_base[qrep] + leaf_np[qrep])[:, None]
-        ppos = out[np.clip(oidx, 0, total_out - 1)]
-        ppos_c = np.clip(ppos, 0, len(prim_ids) - 1)
-        tri_idx = ppos_c if permuted else prim_ids[ppos_c]
-        # invalid slots read a zero sentinel row inside the gather
-        tri_pad = np.concatenate(
-            [tri_np, np.zeros((1, tri_np.shape[1]), np.float32)])
-        tri_idx = np.where(pvalid, np.clip(tri_idx, 0, len(tri_np) - 1),
-                           len(tri_np))
-        geo = tri_pad[tri_idx]                                 # [q, 4, 12]
-        gpos = np.where(pvalid, ppos, -1).astype(np.float32)
-        # quad columns of a treelet are contiguous and qtid is sorted:
-        # one strided slice write per treelet
-        rows_g = (np.arange(QUAD)[:, None] * 13
-                  + np.arange(12)[None, :]).ravel()            # [48]
-        rows_p = np.arange(QUAD) * 13 + 12                     # [4]
-        geo_f = geo.reshape(-1, 48)
-        tstart = np.r_[0, np.cumsum(np.bincount(
-            qtid, minlength=T).astype(np.int64))]
-        for t in range(T):
-            a, b = tstart[t], tstart[t + 1]
-            if a == b:
-                continue
-            c0 = int(n_wide[t])
-            table[t, rows_g, c0:c0 + (b - a)] = geo_f[a:b].T
-            table[t, rows_p, c0:c0 + (b - a)] = gpos[a:b].T
-
-    # ---- super level: cut the top region ------------------------------
-    top_all = np.nonzero(is_top)[0]
-    if super_prims is None and len(top_all) > 4096:
-        super_prims = int(max_prims * max(8, round(np.sqrt(len(top_all)))))
-    use_super = (super_prims is not None and super_prims > max_prims
-                 and bool((nprims > super_prims).any()))
-    sup_cols = np.zeros((0, 128, 16), np.float32)
-    sup_depth = 1
-    sid_node = np.full(nc, -1, np.int64)
-    if use_super:
-        is_stop = is_top & (nprims > super_prims)
-        is_mid = is_top & ~is_stop
-        sroot = is_mid & ((parent < 0) | is_stop[np.clip(parent, 0, nc - 1)])
-        sroots = np.nonzero(sroot)[0]
-        S = len(sroots)
-        sid_node[sroots] = np.arange(S)
-        order_nodes = [sroots]
-        frontier = sroots
-        sup_depth = 1
+        # ---- subtree prim counts via level-synchronous BFS -----------
+        levels = [np.asarray([0], np.int64)]
+        frontier = levels[0]
         while True:
-            kids = np.concatenate([first[frontier], first[frontier] + 1])
-            par_sid = np.tile(sid_node[frontier], 2)
-            keep = is_mid[kids]
-            kids, par_sid = kids[keep], par_sid[keep]
-            if len(kids) == 0:
+            fi = frontier[inner[frontier]]
+            if len(fi) == 0:
                 break
-            sid_node[kids] = par_sid
-            order_nodes.append(kids)
+            kids = np.concatenate([first[fi], first[fi] + 1])
+            levels.append(kids)
             frontier = kids
-            sup_depth += 1
-        mid_seq = np.concatenate(order_nodes)
-        mid_sid = sid_node[mid_seq]
-        local = _cumcount_by(mid_sid)  # stable: BFS order, roots first
-        local_of = np.full(nc, -1, np.int64)
-        local_of[mid_seq] = local
-        Ps = int(_round_up(int(np.bincount(mid_sid).max()), 128))
 
-        def word_sup(nids):
-            return np.where(
-                tid_of_root[nids] >= 0,
-                (tid_of_root[nids] << 4) | 1,
-                (2 * local_of[nids] + 1) << 4,
-            ).astype(np.float32)
+        nprims = np.where(inner, 0, count)
+        for lev in reversed(levels):
+            li = lev[inner[lev]]
+            if len(li):
+                nprims[li] = nprims[first[li]] + nprims[first[li] + 1]
 
-        left = first[mid_seq]
-        sup_rows = np.zeros((len(mid_seq), 14), np.float32)
-        sup_rows[:, 0:6] = bounds[left]
-        sup_rows[:, 6:12] = bounds[left + 1]
-        sup_rows[:, 12] = word_sup(left)
-        sup_rows[:, 13] = word_sup(left + 1)
-        sup_cols = np.zeros((S, Ps, 16), np.float32)
-        sup_cols[mid_sid, local, :14] = sup_rows
-        top_nodes = np.nonzero(is_stop)[0]
-    else:
-        top_nodes = top_all
+        # ---- treelet roots + top region ------------------------------
+        parent = np.full(nc, -1, np.int64)
+        ii = np.nonzero(inner)[0]
+        parent[first[ii]] = ii
+        parent[first[ii] + 1] = ii
+        is_top = nprims > max_prims  # the top region (always inner nodes)
+        troot = (~is_top) & ((parent < 0) | is_top[np.clip(parent, 0, nc - 1)])
+        troot[0] = not is_top[0]
+        troots = np.nonzero(troot)[0]
+        T = len(troots)
+        tid_of_root = np.full(nc, -1, np.int64)
+        tid_of_root[troots] = np.arange(T)
 
-    # ---- top-region binary pair table (phase-A format) ---------------
-    if len(top_nodes) == 0:
-        top_rows = np.zeros((1, 14), np.float32)
-        top_rows[0, 0:6] = bounds[0]
-        top_rows[0, 6:12:2] = big
-        top_rows[0, 7:12:2] = -big
-        top_rows[0, 12] = float(1)  # (0 << 4) | 1: portal to treelet 0
-        top_rows[0, 13] = float(1)
-        top_root = 1 << 4
-        Pt = 128
-        top_node_t = np.zeros((16, Pt), np.float32)
-        top_node_t[:14, :1] = top_rows.T
-    else:
-        top_pair = np.full(nc, -1, np.int64)
-        top_pair[top_nodes] = np.arange(len(top_nodes))
+    with trace.span("bvh.cut.collapse"):
+        # ---- collapse every treelet into wide nodes ------------------
+        terminal = (~inner) | (nprims <= leaf_prims)
+        wide_tid, wide_local, slot_node, child_local, n_wide, wide_depth = (
+            _collapse_wide(bounds, first, count, troots, np.arange(T),
+                           terminal)
+        )
+        W = len(wide_tid)
 
-        def top_word(nids):
-            # treelet portal | super portal (T + sid) | inner pair
-            w = np.where(
-                tid_of_root[nids] >= 0,
-                (tid_of_root[nids] << 4) | 1,
-                np.where(
-                    top_pair[nids] >= 0,
-                    (2 * top_pair[nids] + 1) << 4,
-                    ((T + sid_node[nids]) << 4) | 1,
-                ),
-            )
-            return w.astype(np.float32)
+        # ---- quad leaf assignment ------------------------------------
+        valid = slot_node >= 0
+        sl = np.clip(slot_node, 0, nc - 1)
+        is_leaf_slot = valid & terminal[sl]
+        lr, lc = np.nonzero(is_leaf_slot)
+        leaf_node = slot_node[lr, lc]
+        # quad columns are assigned per treelet in (wide local id, slot) order
+        order = np.lexsort((lc, wide_local[lr], wide_tid[lr]))
+        lr, lc = lr[order], lc[order]
+        leaf_node = leaf_node[order]
+        leaf_tid = wide_tid[lr]
+        leaf_np = nprims[leaf_node]
+        leaf_nq = -(-leaf_np // QUAD)
+        # exclusive cumsum of nq within each treelet
+        cs = np.cumsum(leaf_nq) - leaf_nq
+        if len(leaf_tid):
+            starts = np.r_[0, np.nonzero(leaf_tid[1:] != leaf_tid[:-1])[0] + 1]
+            base_of_group = cs[starts]
+            leaf_qoff = cs - np.repeat(
+                base_of_group, np.diff(np.r_[starts, len(leaf_tid)]))
+        else:
+            leaf_qoff = cs
+        n_quads = np.bincount(leaf_tid, weights=leaf_nq, minlength=T).astype(np.int64)
 
-        left = first[top_nodes]
-        top_rows = np.zeros((len(top_nodes), 14), np.float32)
-        top_rows[:, 0:6] = bounds[left]
-        top_rows[:, 6:12] = bounds[left + 1]
-        top_rows[:, 12] = top_word(left)
-        top_rows[:, 13] = top_word(left + 1)
-        top_root = int(top_word(np.asarray([0]))[0])
-        Pt = int(_round_up(len(top_nodes), 128))
-        top_node_t = np.zeros((16, Pt), np.float32)
-        top_node_t[:14, : len(top_nodes)] = top_rows.T
+        # every leaf slot's subtree prim positions in in-order sequence:
+        # contiguous output ranges, offsets propagated down level by level
+        out_base = np.cumsum(leaf_np) - leaf_np
+        total_out = int(leaf_np.sum())
+        offset = np.full(nc, -1, np.int64)
+        offset[leaf_node] = out_base  # leaf slots are disjoint subtrees
+        frontier = leaf_node[inner[leaf_node]]
+        while len(frontier):
+            left = first[frontier]
+            right = left + 1
+            offset[left] = offset[frontier]
+            offset[right] = offset[frontier] + nprims[left]
+            nxt = np.concatenate([left, right])
+            frontier = nxt[inner[nxt]]
+        ln = np.nonzero((offset >= 0) & ~inner)[0]
+        c = count[ln]
+        tot = int(c.sum())
+        within = np.arange(tot) - np.repeat(np.cumsum(c) - c, c)
+        out = np.empty(total_out, np.int64)
+        out[np.repeat(offset[ln], c) + within] = (np.repeat(first[ln], c)
+                                                  + within)
+        assert tot == total_out
 
-    # exact top-region depth (the phase-A stack bound): deepest BFS
-    # level that still contains a pair-table node, +1 root margin
-    in_region = np.zeros(nc, bool)
-    in_region[top_nodes] = True
-    top_depth = 1
-    for li, lev in enumerate(levels):
-        if in_region[lev].any():
-            top_depth = li + 2
+        P = int(_round_up(max(1, int((n_wide[:T] + n_quads).max())), 128))
 
-    return WideTreelets(
-        top_node_t=torch.as_tensor(top_node_t, device=device),
-        top_root=top_root,
-        table_cols=column_tables(torch.as_tensor(table, device=device)),
-        n_prims=len(prim_ids),
-        n_wide=np.asarray(n_wide[:T], np.int64),
-        top_depth=top_depth,
-        wide_depth=max(1, int(wide_depth)),
-        sup_cols=torch.as_tensor(sup_cols, device=device),
-        sup_depth=int(sup_depth) + 1,
-    )
+    with trace.span("bvh.cut.pack"):
+        # ---- pack per-treelet combined tables -------------------------
+        table = np.zeros((max(T, 1), ROWS, P), np.float32)
+        big = np.float32(np.finfo(np.float32).max)
+        col_of_wide = wide_local  # node columns come first
+        vr, vc = np.nonzero(valid)
+        vslot = slot_node[vr, vc]
+        trow = wide_tid[vr]
+        ccol = col_of_wide[vr]
+        b6 = bounds[vslot]  # [k, 6]
+        d6 = np.arange(6)
+        table[trow[:, None], vc[:, None] * 6 + d6[None, :], ccol[:, None]] = b6
+        # empty child slots: empty box (never hit), word 0
+        er, ec = np.nonzero(~valid)
+        if len(er):
+            etrow = wide_tid[er]
+            ecol = col_of_wide[er]
+            empty6 = np.tile(np.asarray([big, -big, big, -big, big, -big],
+                                        np.float32), (len(er), 1))
+            table[etrow[:, None], ec[:, None] * 6 + d6[None, :],
+                  ecol[:, None]] = empty6
+
+        # slot words: inner child -> (child column << 4); leaf -> quad word
+        words = np.zeros((W, WIDTH), np.int64)
+        icr, icc = np.nonzero(child_local >= 0)
+        words[icr, icc] = child_local[icr, icc] << 4
+        quad_col_base = n_wide[np.clip(leaf_tid, 0, T - 1)] if T else leaf_tid
+        assert leaf_nq.max(initial=0) <= 15
+        leaf_word = ((quad_col_base + leaf_qoff) << 4) | leaf_nq
+        words[lr, lc] = leaf_word
+        wr = np.repeat(np.arange(W), WIDTH).reshape(W, WIDTH)
+        table[wide_tid[wr.ravel()], 48 + np.tile(np.arange(WIDTH), W),
+              col_of_wide[wr.ravel()]] = words.ravel().astype(np.float32)
+
+        # quad columns: gpos rows default to -1 (padding prims never hit),
+        # then real quads overwrite
+        col_idx = np.arange(P)[None, :]
+        in_quad_region = col_idx >= n_wide[:T, None]  # [T, P]
+        gpos_rows = table[:, 12:13 * QUAD:13, :]  # view of rows 12,25,38,51
+        gpos_rows[...] = np.where(in_quad_region[:, None, :], -1.0, gpos_rows)
+        if len(leaf_tid):
+            qrep = np.repeat(np.arange(len(leaf_tid)), leaf_nq)
+            qk = _cumcount_by(qrep)  # quad index within its leaf
+            qtid = leaf_tid[qrep]
+            oidx = (out_base[qrep][:, None] + qk[:, None] * QUAD
+                    + np.arange(QUAD)[None, :])
+            pvalid = oidx < (out_base[qrep] + leaf_np[qrep])[:, None]
+            ppos = out[np.clip(oidx, 0, total_out - 1)]
+            ppos_c = np.clip(ppos, 0, len(prim_ids) - 1)
+            tri_idx = ppos_c if permuted else prim_ids[ppos_c]
+            # invalid slots read a zero sentinel row inside the gather
+            tri_pad = np.concatenate(
+                [tri_np, np.zeros((1, tri_np.shape[1]), np.float32)])
+            tri_idx = np.where(pvalid, np.clip(tri_idx, 0, len(tri_np) - 1),
+                               len(tri_np))
+            geo = tri_pad[tri_idx]                                 # [q, 4, 12]
+            gpos = np.where(pvalid, ppos, -1).astype(np.float32)
+            # quad columns of a treelet are contiguous and qtid is sorted:
+            # one strided slice write per treelet
+            rows_g = (np.arange(QUAD)[:, None] * 13
+                      + np.arange(12)[None, :]).ravel()            # [48]
+            rows_p = np.arange(QUAD) * 13 + 12                     # [4]
+            geo_f = geo.reshape(-1, 48)
+            tstart = np.r_[0, np.cumsum(np.bincount(
+                qtid, minlength=T).astype(np.int64))]
+            for t in range(T):
+                a, b = tstart[t], tstart[t + 1]
+                if a == b:
+                    continue
+                c0 = int(n_wide[t])
+                table[t, rows_g, c0:c0 + (b - a)] = geo_f[a:b].T
+                table[t, rows_p, c0:c0 + (b - a)] = gpos[a:b].T
+
+    with trace.span("bvh.cut.top"):
+        # ---- super level: cut the top region --------------------------
+        top_all = np.nonzero(is_top)[0]
+        if super_prims is None and len(top_all) > 4096:
+            super_prims = int(max_prims * max(8, round(np.sqrt(len(top_all)))))
+        use_super = (super_prims is not None and super_prims > max_prims
+                     and bool((nprims > super_prims).any()))
+        sup_cols = np.zeros((0, 128, 16), np.float32)
+        sup_depth = 1
+        sid_node = np.full(nc, -1, np.int64)
+        if use_super:
+            is_stop = is_top & (nprims > super_prims)
+            is_mid = is_top & ~is_stop
+            sroot = is_mid & ((parent < 0)
+                              | is_stop[np.clip(parent, 0, nc - 1)])
+            sroots = np.nonzero(sroot)[0]
+            S = len(sroots)
+            sid_node[sroots] = np.arange(S)
+            order_nodes = [sroots]
+            frontier = sroots
+            sup_depth = 1
+            while True:
+                kids = np.concatenate([first[frontier], first[frontier] + 1])
+                par_sid = np.tile(sid_node[frontier], 2)
+                keep = is_mid[kids]
+                kids, par_sid = kids[keep], par_sid[keep]
+                if len(kids) == 0:
+                    break
+                sid_node[kids] = par_sid
+                order_nodes.append(kids)
+                frontier = kids
+                sup_depth += 1
+            mid_seq = np.concatenate(order_nodes)
+            mid_sid = sid_node[mid_seq]
+            local = _cumcount_by(mid_sid)  # stable: BFS order, roots first
+            local_of = np.full(nc, -1, np.int64)
+            local_of[mid_seq] = local
+            Ps = int(_round_up(int(np.bincount(mid_sid).max()), 128))
+
+            def word_sup(nids):
+                return np.where(
+                    tid_of_root[nids] >= 0,
+                    (tid_of_root[nids] << 4) | 1,
+                    (2 * local_of[nids] + 1) << 4,
+                ).astype(np.float32)
+
+            left = first[mid_seq]
+            sup_rows = np.zeros((len(mid_seq), 14), np.float32)
+            sup_rows[:, 0:6] = bounds[left]
+            sup_rows[:, 6:12] = bounds[left + 1]
+            sup_rows[:, 12] = word_sup(left)
+            sup_rows[:, 13] = word_sup(left + 1)
+            sup_cols = np.zeros((S, Ps, 16), np.float32)
+            sup_cols[mid_sid, local, :14] = sup_rows
+            top_nodes = np.nonzero(is_stop)[0]
+        else:
+            top_nodes = top_all
+
+        # ---- top-region binary pair table (phase-A format) -----------
+        if len(top_nodes) == 0:
+            top_rows = np.zeros((1, 14), np.float32)
+            top_rows[0, 0:6] = bounds[0]
+            top_rows[0, 6:12:2] = big
+            top_rows[0, 7:12:2] = -big
+            top_rows[0, 12] = float(1)  # (0 << 4) | 1: portal to treelet 0
+            top_rows[0, 13] = float(1)
+            top_root = 1 << 4
+            Pt = 128
+            top_node_t = np.zeros((16, Pt), np.float32)
+            top_node_t[:14, :1] = top_rows.T
+        else:
+            top_pair = np.full(nc, -1, np.int64)
+            top_pair[top_nodes] = np.arange(len(top_nodes))
+
+            def top_word(nids):
+                # treelet portal | super portal (T + sid) | inner pair
+                w = np.where(
+                    tid_of_root[nids] >= 0,
+                    (tid_of_root[nids] << 4) | 1,
+                    np.where(
+                        top_pair[nids] >= 0,
+                        (2 * top_pair[nids] + 1) << 4,
+                        ((T + sid_node[nids]) << 4) | 1,
+                    ),
+                )
+                return w.astype(np.float32)
+
+            left = first[top_nodes]
+            top_rows = np.zeros((len(top_nodes), 14), np.float32)
+            top_rows[:, 0:6] = bounds[left]
+            top_rows[:, 6:12] = bounds[left + 1]
+            top_rows[:, 12] = top_word(left)
+            top_rows[:, 13] = top_word(left + 1)
+            top_root = int(top_word(np.asarray([0]))[0])
+            Pt = int(_round_up(len(top_nodes), 128))
+            top_node_t = np.zeros((16, Pt), np.float32)
+            top_node_t[:14, : len(top_nodes)] = top_rows.T
+
+        # exact top-region depth (the phase-A stack bound): deepest BFS
+        # level that still contains a pair-table node, +1 root margin
+        in_region = np.zeros(nc, bool)
+        in_region[top_nodes] = True
+        top_depth = 1
+        for li, lev in enumerate(levels):
+            if in_region[lev].any():
+                top_depth = li + 2
+
+    with trace.span("bvh.cut.upload"):
+        return WideTreelets(
+            top_node_t=torch.as_tensor(top_node_t, device=device),
+            top_root=top_root,
+            table_cols=column_tables(torch.as_tensor(table, device=device)),
+            n_prims=len(prim_ids),
+            n_wide=np.asarray(n_wide[:T], np.int64),
+            top_depth=top_depth,
+            wide_depth=max(1, int(wide_depth)),
+            sup_cols=torch.as_tensor(sup_cols, device=device),
+            sup_depth=int(sup_depth) + 1,
+        )
 
 
 # ----------------------------------------------------- kernel B1, plain
@@ -946,38 +961,39 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
         rsel = lanes[cur >= 0]
         if rsel.numel() == 0:
             break
-        idx = scur[rsel][None, :] + steps                     # [K2, Rr]
-        wsid = torch.where(idx < mps, sup_id[:, rsel].gather(
-            0, idx.clamp(max=mps - 1)), -1)
-        jj, rr = torch.nonzero(wsid >= 0, as_tuple=True)
-        perm = torch.sort(wsid[jj, rr], stable=True).indices  # by super
-        jj, rr = jj[perm], rr[perm]
-        ntid, nt, stats = collect_super(
-            tl.sup_cols, wsid[jj, rr].to(torch.int32).contiguous(),
-            rays_c[:, rsel[rr]].contiguous(), robust=robust,
-            stack_depth=sup_stack, max_new=max_new)
-        diag["a2_rounds"] += 1
-        diag["a2_pairs"] += rr.numel()
-        if rr.numel():
-            if int(stats[0].max()) > max_new:
-                bits |= 2
-            diag["sup_ovf"] |= bool(stats[2].any())
-        Rr = rsel.numel()
-        new_id = torch.full((max_new, K2, Rr), -1, dtype=i64, device=dev)
-        new_t = torch.full((max_new, K2, Rr), float("inf"),
-                           dtype=torch.float32, device=dev)
-        new_id[:, jj, rr] = ntid.to(i64)
-        new_t[:, jj, rr] = nt
-        cat_t, order = torch.sort(
-            torch.cat([main_t[:, rsel], new_t.reshape(-1, Rr)]), dim=0,
-            stable=True)
-        cat_id = torch.cat([main_id[:, rsel],
-                            new_id.reshape(-1, Rr)]).gather(0, order)
-        if int(torch.isfinite(cat_t).sum(0).max()) > max_portals:
-            bits |= 4
-        main_t[:, rsel] = cat_t[:max_portals]
-        main_id[:, rsel] = cat_id[:max_portals]
-        scur[rsel] += K2
+        with trace.span("bvh.a2_round"):
+            idx = scur[rsel][None, :] + steps                     # [K2, Rr]
+            wsid = torch.where(idx < mps, sup_id[:, rsel].gather(
+                0, idx.clamp(max=mps - 1)), -1)
+            jj, rr = torch.nonzero(wsid >= 0, as_tuple=True)
+            perm = torch.sort(wsid[jj, rr], stable=True).indices  # by super
+            jj, rr = jj[perm], rr[perm]
+            ntid, nt, stats = collect_super(
+                tl.sup_cols, wsid[jj, rr].to(torch.int32).contiguous(),
+                rays_c[:, rsel[rr]].contiguous(), robust=robust,
+                stack_depth=sup_stack, max_new=max_new)
+            diag["a2_rounds"] += 1
+            diag["a2_pairs"] += rr.numel()
+            if rr.numel():
+                if int(stats[0].max()) > max_new:
+                    bits |= 2
+                diag["sup_ovf"] |= bool(stats[2].any())
+            Rr = rsel.numel()
+            new_id = torch.full((max_new, K2, Rr), -1, dtype=i64, device=dev)
+            new_t = torch.full((max_new, K2, Rr), float("inf"),
+                               dtype=torch.float32, device=dev)
+            new_id[:, jj, rr] = ntid.to(i64)
+            new_t[:, jj, rr] = nt
+            cat_t, order = torch.sort(
+                torch.cat([main_t[:, rsel], new_t.reshape(-1, Rr)]), dim=0,
+                stable=True)
+            cat_id = torch.cat([main_id[:, rsel],
+                                new_id.reshape(-1, Rr)]).gather(0, order)
+            if int(torch.isfinite(cat_t).sum(0).max()) > max_portals:
+                bits |= 4
+            main_t[:, rsel] = cat_t[:max_portals]
+            main_id[:, rsel] = cat_id[:max_portals]
+            scur[rsel] += K2
     return main_id, main_t, bits, diag
 
 
@@ -1206,6 +1222,7 @@ def wide_treelet_intersect_tris(
                       auto_caps=auto_caps, return_diag=return_diag)
 
 
+@trace.spanned("bvh.render")
 def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                robust=False, top_stack=None, stack_depth=None,
                max_portals=None, max_rounds=None, mps=None, max_new=None,
@@ -1218,7 +1235,10 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     render without the kernels on any device. `traverse` is given the
     column tables `tl.table_cols`, `collect_super` the super rows
     `tl.sup_cols`. `k`: portals a ready ray and round (default
-    `portals_per_round(tl)`)."""
+    `portals_per_round(tl)`). While a torch profiler records, the call
+    is the span bvh.render and each attempt at some caps
+    bvh.render.attempt, and every attempt adds its rounds, pairs and A2
+    rounds to the `core.trace` counters wide_treelet.*."""
     if k is None:
         k = portals_per_round(tl)
     auto = wide_treelet_caps(tl, k)
@@ -1235,11 +1255,18 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
         sup_stack=tl.sup_depth + 1,
     )
     packed = pack_rays(rays)
+    trace.count("wide_treelet.calls", 1)
     for attempt in range(8):
-        bt, bu, bv, pos, cnt, diag = render_at_caps(
-            tl, packed, caps, any_hit=any_hit, robust=robust,
-            collect=collect, traverse=traverse, collect_super=collect_super,
-            k=k)
+        with trace.span("bvh.render.attempt"):
+            bt, bu, bv, pos, cnt, diag = render_at_caps(
+                tl, packed, caps, any_hit=any_hit, robust=robust,
+                collect=collect, traverse=traverse,
+                collect_super=collect_super, k=k)
+        # an overflowed attempt is work done too: every attempt counts
+        trace.count("wide_treelet.attempts", 1)
+        trace.count("wide_treelet.rounds", diag["rounds"])
+        trace.count("wide_treelet.pairs", diag["pairs"])
+        trace.count("wide_treelet.a2_rounds", diag.get("a2_rounds", 0))
         bumps = {}
         if diag["max_cnt"] > caps["max_portals"]:
             bumps["max_portals"] = _up_pow2(diag["max_cnt"])

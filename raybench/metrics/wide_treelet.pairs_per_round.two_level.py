@@ -1,0 +1,6 @@
+"""`wide_treelet.pairs_per_round` in the cells of a two-level
+cut, where it moves `mrays_s.two_level`."""
+
+from raybench import harness
+
+read = harness.reader("wide_treelet.pairs_per_round")
