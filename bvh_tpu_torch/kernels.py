@@ -38,7 +38,8 @@ CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
                 os.path.join(CSRC, "wide_treelet.cu"),
                 os.path.join(CSRC, "group_build.cu"),
                 os.path.join(CSRC, "binary_traverse.cu"),
-                os.path.join(CSRC, "probes.cu")]
+                os.path.join(CSRC, "probes.cu"),
+                os.path.join(CSRC, "portal_sort.cu")]
 CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
 # Stack capacities compiled into the kernels; a wrapper raises when
 # asked for a deeper stack.
@@ -142,6 +143,14 @@ _SIGNATURES = {
     # max_new, ntid, nt, stats, stream
     "bvh_collect_super_pairs": [_VP, _I, _VP, _VP, _I, _I, _I, _I,
                                 _VP, _VP, _VP, _VP],
+    # ptid, ptent, cnt, R, MP, sel, Rc, T (< 0: no split), mps, tid, tent,
+    # sup, nsup, tlen (the last three null without a split), stream
+    "bvh_portal_sort": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
+                        _VP, _VP, _VP, _VP],
+    # tid, tent, tlen, MP, Rc, rsel, Rr, pair, k2, ntid, nt, ncnt, L,
+    # max_new, dest (scratch), fcnt, stream
+    "bvh_portal_merge": [_VP, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _VP, _VP,
+                         _VP, _I, _I, _VP, _VP, _VP],
     # pairs [P, 16], tris [n, 12], rays, R, root_word, any_hit, robust,
     # stack_depth, out_f, out_i, next (the work counter, one int, zero
     # at the launch), steps (or null), stream
@@ -351,12 +360,15 @@ GROUP_BUILD = Kernel("group_build", "bvh_group_build")
 COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
 BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
 SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_sphere_traverse")
+PORTAL_SORT = Kernel("portal_sort", "bvh_portal_sort")
+PORTAL_MERGE = Kernel("portal_merge", "bvh_portal_merge")
 # the profiling tools' kernels (bvh_tpu_torch/tools/)
 WIDE_TREELET_ABLATE = Kernel("traverse_pairs_ablate", "bvh_wide_treelet_ablate")
 WIDE_STEP_PROBE = Kernel("wide_step_probe", "bvh_wide_step_probe")
 COLUMN_FETCH = Kernel("column_fetch", "bvh_column_fetch")
 KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD, COLLECT_SUPER,
-           BINARY_TRAVERSE, SPHERE_TRAVERSE, WIDE_TREELET_ABLATE,
+           BINARY_TRAVERSE, SPHERE_TRAVERSE, PORTAL_SORT, PORTAL_MERGE,
+           WIDE_TREELET_ABLATE,
            WIDE_STEP_PROBE, COLUMN_FETCH)
 
 

@@ -73,10 +73,13 @@ def run(tl, rays, device, reps: int = 3) -> dict:
     res["phase_a_ms"] = timed("phase A", lambda: collect_portals(
         *a_args, **a_kw), a_out, device, reps)
     res["phase_a_args"] = (a_args, a_kw, a_out)
-    portals = rec.first["portal_sort"][2]
+    # phase A2 merges into the recorded lists in place: time against a
+    # fresh ordering of the same records
+    s_args, s_kw, _ = rec.first["portal_sort"]
+    portals = wt.sort_portals(*s_args, **s_kw)
     res["portal_sort_ms"] = timed("compaction + portal sort", lambda:
-                                  wt.sort_portals(*a_out), portals, device,
-                                  reps)
+                                  wt.sort_portals(*s_args, **s_kw), portals,
+                                  device, reps)
     log(f"# T4 scene: T={T} P={P} S={tl.sup_table.shape[0]} top width "
         f"{tl.top_node_t.shape[1]}; {R} rays, {rounds} rounds, pairs a "
         f"round {rec.pairs}; phase A (B2) alone {res['phase_a_ms']:.4f} ms, "

@@ -56,6 +56,11 @@ from bvh_tpu_torch.traverse.collect import (
     slab_inverse,
     slab_planes,
 )
+from bvh_tpu_torch.traverse.portal_sort import (
+    merge_columns,
+    sort_columns,
+    split_columns,
+)
 from bvh_tpu_torch.traverse.wavefront import Hit, TraversalStats
 
 WIDTH = 8
@@ -876,6 +881,14 @@ def pack_rays(rays: Ray) -> torch.Tensor:
                       rays.tmax[None]]).to(torch.float32).contiguous()
 
 
+class SuperLists(NamedTuple):
+    """A two-level scene's phase-A supers, split off each ray's list."""
+
+    sid: torch.Tensor      # [mps, Rc] int32 supers (tid - T), entry order
+    count: torch.Tensor    # [Rc] int32 supers a ray recorded (past mps)
+    tlen: torch.Tensor     # [Rc] int32 treelet list's length
+
+
 class Portals(NamedTuple):
     """Phase-A result over the rays that entered any treelet box."""
 
@@ -885,34 +898,47 @@ class Portals(NamedTuple):
     cnt: torch.Tensor      # [R] int32 portal count (past the cap)
     top_hwm: int           # phase-A stack high-water mark
     top_ovf: bool          # phase-A stack overflow
+    max_cnt: int           # the largest portal count
+    # two-level scenes sorted with `split`: the supers; tid, tent then
+    # hold the treelet list, each super replaced by -1 / +inf
+    sup: SuperLists | None = None
 
 
 def collect_and_sort(tl: WideTreelets, packed, *, robust: bool,
                      top_stack: int, max_portals: int,
-                     collect=collect_portals) -> Portals:
-    """Phase A, then `sort_portals`."""
+                     collect=collect_portals, mps: int | None = None
+                     ) -> Portals:
+    """Phase A, then `sort_portals`; with `mps`, the supers split off
+    as the render's phase A2 takes them."""
+    split = None if mps is None else (tl.table.shape[0], mps)
     return sort_portals(*collect(tl.top_node_t, packed, tl.top_root,
                                  robust=robust, stack_depth=top_stack,
-                                 max_portals=max_portals))
+                                 max_portals=max_portals), split=split)
 
 
-def sort_portals(ptid, ptent, stats) -> Portals:
+def sort_portals(ptid, ptent, stats, *, split=None) -> Portals:
     """Phase A's records compacted to the rays that recorded any portal
-    (:1536), each ray's portals sorted ascending by entry t (:1892).
-    torch's stable sort orders equal entry t by record order, where
-    the reference's sort is not declared stable; only ties differ."""
+    (:1536), each ray's portals sorted ascending by entry t (:1892),
+    stably (`portal_sort.sort_columns`; the reference's sort is not
+    declared stable, so only ties may differ). `split`: None, or
+    (T, mps) in a two-level scene, whose lists are then split in the
+    same pass (`portal_sort.split_columns`). Phase A's stack and count
+    readings are read on the host before the ordering is queued, so the
+    host does not wait for it."""
     cnt = stats[0]
     sel = torch.nonzero(cnt > 0).squeeze(1)
-    tid, tent = sort_columns(ptid, ptent, sel)
-    return Portals(sel, tid, tent, cnt, int(stats[1].max()) if stats.numel()
-                   else 0, bool(stats[2].any()))
-
-
-def sort_columns(ptid, ptent, sel):
-    """The portal records of rays `sel`, each ray's sorted ascending by
-    entry t, stably: (tid [MP, len(sel)] int64, tent f32)."""
-    tent, order = torch.sort(ptent[:, sel], dim=0, stable=True)
-    return torch.gather(ptid[:, sel].to(torch.int64), 0, order), tent
+    top_hwm = int(stats[1].max()) if stats.numel() else 0
+    top_ovf = bool(stats[2].any())
+    max_cnt = int(cnt.max()) if cnt.numel() else 0
+    if split is None:
+        tid, tent = sort_columns(ptid, ptent, cnt, sel)
+        sup = None
+    else:
+        T, mps = split
+        tid, tent, sid, nsup, tlen = split_columns(ptid, ptent, cnt, sel,
+                                                   T=T, mps=mps)
+        sup = SuperLists(sid, nsup, tlen)
+    return Portals(sel, tid, tent, cnt, top_hwm, top_ovf, max_cnt, sup)
 
 
 def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
@@ -921,36 +947,33 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     """Phase A2 (wide_treelet.py:1740-1873): replace each ray's super
     portals (tid >= T) by the treelet portals inside those supers.
 
-    Each ray's supers, in entry order and at most `mps` of them, are
-    expanded K2 per ready ray and round: one B4 walk per (ray, super)
-    pair, with the ray's own tmax, records up to `max_new` treelet
-    portals; the new portals (record-major, then super) are merged
-    stably after the ray's treelet portals by entry t and cut to
-    `max_portals`. Rounds go on until no ray has a super left, where the
-    reference stops after 64 rounds (ROADMAP C11).
+    `portals` comes from `sort_portals(..., split=(T, mps))`: each
+    ray's supers in entry order, at most `mps` of them, and its treelet
+    list. The supers are expanded K2 per ready ray and round: one B4
+    walk per (ray, super) pair, with the ray's own tmax, records up to
+    `max_new` treelet portals; the new portals (record-major, then
+    super) are merged stably after the ray's treelet portals by entry t
+    and cut to the render's `max_portals` (`portal_sort.merge_columns`),
+    in place: portals.tid, .tent and .sup.tlen are consumed. Rounds go
+    on until no ray has a super left (the reference stops at 64, C11).
 
-    Returns (tid [MP, Rc] int64, tent [MP, Rc] f32, bits, diag): bits
-    is the reference's overflow mask (1: more than mps supers, 2: a pair
-    recorded more than max_new, 4: a merged list longer than
-    max_portals), diag the A2 rounds, pairs and B4's stack overflow."""
-    T = tl.table.shape[0]
+    Returns (tid, tent, bits, diag): the merged lists [MP, Rc] (int64,
+    f32; portals.tid and .tent themselves), the reference's overflow
+    mask (1: more than mps supers, 2: a pair recorded more than
+    max_new, 4: a merged list longer than max_portals), and the A2
+    rounds, pairs and B4's stack overflow. While a profiler records,
+    each merge adds 1 to wide_treelet.portal_sorts."""
+    if portals.sup is None or portals.sup.sid.shape[0] != mps:
+        raise ValueError("expand_supers: the portals must be split at mps "
+                         "(sort_portals(..., split=(T, mps)))")
     dev = rays_c.device
     i64 = torch.int64
     tid, tent = portals.tid, portals.tent
+    sup_id, tlen = portals.sup.sid, portals.sup.tlen
     Rc = tid.shape[1]
-    is_sup = tid >= T
     bits = 0
-    if Rc and int(is_sup.sum(0).max()) > mps:
+    if Rc and int(portals.sup.count.max()) > mps:
         bits |= 1
-    # supers in entry order (the lists are sorted by entry t, stably)
-    order = torch.sort((~is_sup).to(torch.int8), dim=0, stable=True).indices
-    sup_id = torch.where(is_sup, tid - T, -1).gather(0, order)[:mps]
-    if sup_id.shape[0] < mps:
-        sup_id = torch.cat([sup_id, sup_id.new_full(
-            (mps - sup_id.shape[0], Rc), -1)])
-    main_t, order = torch.sort(torch.where(is_sup, float("inf"), tent),
-                               dim=0, stable=True)
-    main_id = torch.where(is_sup, -1, tid).gather(0, order)
     diag = dict(a2_rounds=0, a2_pairs=0, sup_ovf=False)
     scur = torch.zeros(Rc, dtype=i64, device=dev)
     lanes = torch.arange(Rc, device=dev)
@@ -969,7 +992,7 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
             perm = torch.sort(wsid[jj, rr], stable=True).indices  # by super
             jj, rr = jj[perm], rr[perm]
             ntid, nt, stats = collect_super(
-                tl.sup_cols, wsid[jj, rr].to(torch.int32).contiguous(),
+                tl.sup_cols, wsid[jj, rr].contiguous(),
                 rays_c[:, rsel[rr]].contiguous(), robust=robust,
                 stack_depth=sup_stack, max_new=max_new)
             diag["a2_rounds"] += 1
@@ -978,23 +1001,13 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
                 if int(stats[0].max()) > max_new:
                     bits |= 2
                 diag["sup_ovf"] |= bool(stats[2].any())
-            Rr = rsel.numel()
-            new_id = torch.full((max_new, K2, Rr), -1, dtype=i64, device=dev)
-            new_t = torch.full((max_new, K2, Rr), float("inf"),
-                               dtype=torch.float32, device=dev)
-            new_id[:, jj, rr] = ntid.to(i64)
-            new_t[:, jj, rr] = nt
-            cat_t, order = torch.sort(
-                torch.cat([main_t[:, rsel], new_t.reshape(-1, Rr)]), dim=0,
-                stable=True)
-            cat_id = torch.cat([main_id[:, rsel],
-                                new_id.reshape(-1, Rr)]).gather(0, order)
-            if int(torch.isfinite(cat_t).sum(0).max()) > max_portals:
+            fcnt = merge_columns(tid, tent, tlen, rsel, jj, rr, ntid, nt,
+                                 stats[0], k2=K2, max_new=max_new)
+            trace.count("wide_treelet.portal_sorts", 1)
+            if int(fcnt.max()) > max_portals:
                 bits |= 4
-            main_t[:, rsel] = cat_t[:max_portals]
-            main_id[:, rsel] = cat_id[:max_portals]
             scur[rsel] += K2
-    return main_id, main_t, bits, diag
+    return tid, tent, bits, diag
 
 
 def ready_rays(portals: Portals, cur, tmax, bpos, *, any_hit: bool):
@@ -1103,10 +1116,13 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     R = packed.shape[1]
     dev = packed.device
     f32, i64 = torch.float32, torch.int64
+    two_level = tl.sup_cols.shape[0] > 0
     portals = stage("portal_sort", sort_portals, *stage(
         "phase_a", collect, tl.top_node_t, packed, tl.top_root,
-        robust=robust, stack_depth=top_stack, max_portals=max_portals))
-    diag = dict(max_cnt=int(portals.cnt.max()) if R else 0,
+        robust=robust, stack_depth=top_stack, max_portals=max_portals),
+        split=(tl.table.shape[0], mps) if two_level else None)
+    trace.count("wide_treelet.portal_sorts", 1)
+    diag = dict(max_cnt=portals.max_cnt,
                 top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
                 stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
                 pending=False, a2_bits=0)
@@ -1120,7 +1136,7 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     sel = portals.sel
     Rc = sel.numel()
     rays_c = packed[:, sel]
-    if tl.sup_cols.shape[0] > 0:
+    if two_level:
         tid, tent, bits, a2 = stage(
             "phase_a2", expand_supers, tl, portals, rays_c, robust=robust,
             sup_stack=sup_stack, mps=mps, max_new=max_new,
@@ -1413,7 +1429,8 @@ def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
     has = cnt > 0
     Rc = min(sel_cap, R)
     sel = torch.sort(torch.where(has, lanes, lanes + R)).indices[:Rc]
-    tid, tent = sort_columns(ptid, ptent, sel)
+    tid, tent = sort_columns(ptid, ptent, cnt, sel)
+    trace.count("wide_treelet.portal_sorts", 1)
     rays_c = packed[:, sel]
     octant = octants(rays_c)
     state = dict(bt=torch.full((Rc,), float("inf"), dtype=f32, device=dev),

@@ -196,6 +196,17 @@ exits non-zero):
    line; the kernels line's B1 and B2 entries carry its launches
    under "one_program".
 
+22. the portal ordering kernel (csrc/portal_sort.cu) at the main
+   path's shapes: the sort of phase A's records of the 262K primary
+   rays, the two-level split of the San-Miguel-class scene's and that
+   render's first A2 merge, each equal to its plain version (the torch
+   sorts over padded columns) bit for bit, timed beside it and beside
+   torch.sort of the same columns alone (`library_ms`), with the bound
+   of its bytes, and the kernels' launches in the entry point's render
+   of each scene (one sort an attempt, one merge an A2 round); results
+   in chiprun_out/phase22.json, a `{"portal_sort": ...}` line and the
+   kernels line's portal_sort and portal_merge entries.
+
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
 render's hits bit for bit, a torch.profiler trace of one render, the
@@ -769,7 +780,8 @@ def first_a2_round(tl, packed):
     caps = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
     portals = wt.collect_and_sort(tl, packed, robust=False,
                                   top_stack=tl.top_depth + 1,
-                                  max_portals=caps["max_portals"])
+                                  max_portals=caps["max_portals"],
+                                  mps=caps["mps"])
     first = {}
 
     def recorder(sup_cols, sid, prays, **kw):
@@ -2029,6 +2041,189 @@ def device_trace(fn) -> dict:
     return res
 
 
+def portal_sort_phase(tree, flat, tris, big_tl, big_rays) -> dict:
+    """Phase 22: the portal ordering kernel (csrc/portal_sort.cu) on
+    phase A's records at the main path's shapes: the 262K tree's
+    1,048,576 primary rays (the sort, at the render's max_portals) and
+    phase 13's San-Miguel-class scene (the two-level split at its caps,
+    then the first A2 round's merge). Each output is held to the plain
+    version (the torch sorts over the padded columns it replaced) on the
+    same CUDA tensors bit for bit; the kernel and the plain version are
+    timed as the device's own time (median of 21), beside torch.sort of
+    the same gathered columns alone (`library_ms`), with the bound of the
+    bytes the kernel must move (records read once, outputs written
+    once). `launches`: the ordering kernels' launches in the entry
+    point's render of the same rays, counted from a reset just before
+    it, beside that render's attempts and A2 rounds. No benchmark cell
+    runs this phase."""
+    from bvh_tpu_torch.cli.camera import primary_rays
+    from bvh_tpu_torch.io.scenes import scene_camera
+    from bvh_tpu_torch.traverse import collect as col
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    t_phase = time.perf_counter()
+    tl = wt.build_wide_treelets(tree, flat, device=DEV)
+    eye, d, up = scene_camera(tris)
+    res = {}
+    for name, scene, rays in (
+            ("262k", tl, primary_rays(eye, d, up, SIDE, SIDE, device=DEV)),
+            ("10m", big_tl, big_rays)):
+        caps = wt.wide_treelet_caps(scene, wt.portals_per_round(scene))
+        MP = caps["max_portals"]
+        packed = wt.pack_rays(rays)
+        ptid, ptent, stats = col.collect_portals(
+            scene.top_node_t, packed, scene.top_root, robust=False,
+            stack_depth=scene.top_depth + 1, max_portals=MP)
+        cnt = stats[0]
+        sel = torch.nonzero(cnt > 0).squeeze(1)
+        Rc = sel.numel()
+        n_rec = int(cnt[sel].clamp(max=MP).sum())
+        T = scene.table.shape[0]
+        two_level = scene.sup_cols.shape[0] > 0
+        kw = dict(T=T, mps=caps["mps"]) if two_level else {}
+
+        def kern():
+            if two_level:
+                return ps.split_columns(ptid, ptent, cnt, sel, **kw)
+            return ps.sort_columns(ptid, ptent, cnt, sel)
+
+        def plain_fn():
+            if two_level:
+                return ps.split_columns_plain(ptid, ptent, cnt, sel, **kw)
+            return ps.sort_columns_plain(ptid, ptent, cnt, sel)
+
+        out_bytes = Rc * (MP * 12 + (caps["mps"] * 4 + 8 if two_level
+                                     else 0))
+        want = plain_fn()
+        got = kern()
+        equal = same(got, want)
+        cols = ptent[:, sel]
+        ms = device_ms(kern, want)
+        plain_ms = device_ms(plain_fn, want)
+        library_ms = device_ms(lambda: torch.sort(cols, dim=0,
+                                                  stable=True).values,
+                               torch.sort(cols, dim=0, stable=True).values)
+        # sel (8 bytes) and cnt (4) a ray, each record (id, t) once
+        b = bound(Rc * 12 + n_rec * 8 + out_bytes, 0)
+        res[name] = dict(rays=packed.shape[1], rays_with_portals=Rc,
+                         max_portals=MP, records=n_rec, equal=equal, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b[0], bound_by=b[1],
+                         launches=main_path_launches(scene, rays))
+        if two_level:
+            res[name]["merge"] = first_merge(scene, packed, caps)
+        log(f"# phase 22, {name}: {res[name]}")
+        if not (equal and res[name].get("merge", {}).get("equal", True)):
+            raise AssertionError(f"phase 22, {name}: the portal ordering "
+                                 "kernel differs from its plain version")
+    res.update(seconds=time.perf_counter() - t_phase, card=card_line())
+    with open(os.path.join(OUT_DIR, "phase22.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+def main_path_launches(tl, rays) -> dict:
+    """The entry point's render of `rays` (closest hit, default caps),
+    with the launch counts reset just before it: the ordering kernels'
+    launches, and the attempts and A2 rounds that the render's trace
+    counters give (a host-only profiler records them). Raises unless
+    the render sorted once an attempt and merged once an A2 round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.core import trace
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    keys = ("wide_treelet.attempts", "wide_treelet.a2_rounds")
+    before = trace.counts()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        wt.wide_treelet_intersect_tris(tl, rays)
+        torch.cuda.synchronize()
+    after = trace.counts()
+    attempts, a2_rounds = (after.get(k, 0) - before.get(k, 0) for k in keys)
+    out = dict(portal_sort=kernels.PORTAL_SORT.launches,
+               portal_merge=kernels.PORTAL_MERGE.launches,
+               attempts=attempts, a2_rounds=a2_rounds)
+    if (out["portal_sort"], out["portal_merge"]) != (attempts, a2_rounds):
+        raise AssertionError(f"phase 22: the render's ordering launches "
+                             f"{out} are not one sort an attempt and one "
+                             f"merge an A2 round")
+    return out
+
+
+def first_merge(tl, packed, caps) -> dict:
+    """The first A2 round's merge of the render at `caps` (closest hit,
+    fast slab): its inputs recorded, then the kernel and the plain merge
+    on fresh copies of the lists, equal bit for bit, each timed with
+    CUDA events around the call (median of 21, the copies made before),
+    beside torch.sort of the columns the plain merge sorts
+    (`library_ms`). The bound counts the bytes the kernel must move:
+    the merged rays' keys read (4 bytes a slot up to the list's
+    length), the slots that change written (12 bytes), B4's records
+    read once (8 bytes a record, 4 a pair's count) and each ray's
+    length and finite count written."""
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+
+    rec = {}
+    real = wt.merge_columns
+
+    def recorder(tid, tent, tlen, *args, **kw):
+        if not rec:
+            rec.update(lists=(tid.clone(), tent.clone(), tlen.clone()),
+                       args=args, kw=kw)
+        return real(tid, tent, tlen, *args, **kw)
+
+    wt.merge_columns = recorder
+    try:
+        portals = wt.collect_and_sort(
+            tl, packed, robust=False, top_stack=tl.top_depth + 1,
+            max_portals=caps["max_portals"], mps=caps["mps"])
+        wt.expand_supers(tl, portals, packed[:, portals.sel], robust=False,
+                         sup_stack=tl.sup_depth + 1, mps=caps["mps"],
+                         max_new=caps["max_new"],
+                         max_portals=caps["max_portals"])
+    finally:
+        wt.merge_columns = real
+    args, kw = rec["args"], rec["kw"]   # rsel, jj, rr, ntid, nt, ncnt
+    rsel, jj, rr, ntid, nt, ncnt = args
+
+    def timed_merge(fn):
+        times, out = [], None
+        for _ in range(21):
+            lists = tuple(x.clone() for x in rec["lists"])
+            ms, f = events_ms(lambda: fn(lists))
+            times.append(ms)
+            out = (*lists, f)
+        return float(np.median(times)), out
+
+    ms, got = timed_merge(lambda lists: ps.merge_columns(*lists, *args, **kw))
+    plain_ms, want = timed_merge(lambda lists: ps.merge_columns_plain(
+        *lists, *args, **kw))
+    # the columns the plain merge sorts: the lists, then the new records
+    # laid out (record, window slot)
+    tid0, tent0, tlen0 = rec["lists"]
+    Rr = rsel.numel()
+    new_t = torch.full((kw["max_new"], kw["k2"], Rr), float("inf"),
+                       device=tent0.device)
+    new_t[:, jj, rr] = nt
+    cols = torch.cat([tent0[:, rsel], new_t.reshape(-1, Rr)])
+    ref = torch.sort(cols, dim=0, stable=True).values
+    library_ms = device_ms(lambda: torch.sort(cols, dim=0,
+                                              stable=True).values, ref)
+    changed = int(((got[0][:, rsel] != tid0[:, rsel])
+                   | (bits(got[1][:, rsel]) != bits(tent0[:, rsel]))).sum())
+    n_new = int(ncnt.clamp(max=kw["max_new"]).sum())
+    b = bound(4 * int(tlen0[rsel].sum()) + 12 * changed + 8 * n_new
+              + 4 * ncnt.numel() + 8 * Rr, 0)
+    return dict(rays=int(Rr), pairs=int(jj.numel()), records=n_new,
+                slots_changed=changed, equal=same(got, want), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b[0],
+                bound_by=b[1])
+
+
 def one_program_phase(tree, flat, tris, big_tl) -> dict:
     """Phase 21: the one-program render on phase 7's 262K tree, for the
     primary and the shadow rays: the caps of a verified eager call; the
@@ -2640,6 +2835,7 @@ def run() -> dict:
 
     t19 = tools_phase((mn, mx, cc), WideScene(tris, tree, flat, rays),
                       native_bvh, t3["round_one"], big_sc, big_tl)
+    big_rays = big_sc.rays
     del big_sc
     print(json.dumps({"tools": {k: t19[k] for k in (
         "seconds", "tool_seconds", "launches_total", "card")}}), flush=True)
@@ -2651,7 +2847,11 @@ def run() -> dict:
 
     # ---- 21. the one-program render: the chain as one CUDA graph ------
     t21 = one_program_phase(tree, flat, tris, big_tl)
-    del big_tl
+
+    # ---- 22. the portal ordering kernel against the plain ordering ----
+    t22 = portal_sort_phase(tree, flat, tris, big_tl, big_rays)
+    del big_tl, big_rays
+    print(json.dumps({"portal_sort": t22}), flush=True)
     one_program = {name: {k: t21[name][k] for k in (
         "hits", "rounds", "sel_cap", "tail_cap", "eager", "eager_launches",
         "capture_launches", "graph_nodes", "steady_ms", "fixed_cost_ms",
@@ -2689,6 +2889,18 @@ def run() -> dict:
             k.name, 0), "chain": t21[name]["chain_launches"].get(k.name, 0),
             "capture": t21[name]["capture_launches"].get(k.name, 0)}
             for name in ("primary", "shadow")}
+
+    def ordering_entry(k, m, launches, **extra):
+        """Phase 22's row of a portal ordering kernel: times and bound
+        in `m`, launches in the entry point's render (`launches`)."""
+        return {"name": k.name, "route": "cuda",
+                "source": "bvh_tpu_torch/csrc/portal_sort.cu",
+                "replaces": "none: bvh_tpu orders portals with jax.lax.sort "
+                "(bvh_tpu/traverse/wide_treelet.py:1892, A2's merge "
+                ":1840-1873)", "launches": launches[k.name],
+                "max_abs_err": 0.0, "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"], **extra}
 
     err["b5"], err["b4"], err["b6"] = b5["err"], b4["err"], b6["err"]
     for key, d_ in (("b5", b5_262k), ("b4", b4), ("b6", b6)):
@@ -2735,6 +2947,21 @@ def run() -> dict:
               "bvh_tpu_torch/csrc/binary_traverse.cu",
               "bvh_tpu/traverse/pallas_sphere.py:88", "b6", b6["launches"],
               per_dim=b6["per_dim"]),
+        ordering_entry(
+            kernels.PORTAL_SORT, t22["262k"], t22["262k"]["launches"],
+            shape="the 262K tree, 1,048,576 primary rays (phase 22); "
+            "launches in the entry point's render of them",
+            launches_two_level=t22["10m"]["launches"],
+            split={k: t22["10m"][k] for k in (
+                "rays_with_portals", "max_portals", "records", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            timing=device_timing),
+        ordering_entry(
+            kernels.PORTAL_MERGE, t22["10m"]["merge"], t22["10m"]["launches"],
+            shape="the first A2 round of phase 13's San-Miguel-class "
+            "render; launches in the entry point's render (one an A2 "
+            "round)", timing="ms, plain_ms: CUDA events around the call, "
+            "median of 21; library_ms: the device's own time, median of 21"),
         tool_entry("T1 traverse_pairs_ablate (B1's variants)",
                    "bvh_tpu_torch/csrc/wide_treelet.cu",
                    "tools/ablate_kernel.py:97",

@@ -9,7 +9,10 @@ a single-pair super, every super of a ray, stacks of 1 and 2, a
 `max_new` of 1) and the two-level render, the group build (B3) on groups that reach each of its
 branches on its warp path and its CTA path (both variants, "bfs" with its
 queue row), and the profiling tools' kernels (T6 column fetch, T5 wide
-step probe, T1 B1's ablation variants), and the sharded mini-tree build on two gloo ranks that share the card. They skip where there is no device. The repository's conftest imports jax, which
+step probe, T1 B1's ablation variants), the portal ordering (sort,
+two-level split and A2 merge, on the records of box-grid scenes at the
+benchmark's sizes and on crafted ones, and the renders with it against
+the plain ordering), and the sharded mini-tree build on two gloo ranks that share the card. They skip where there is no device. The repository's conftest imports jax, which
 the GPU machine does not have, so they run there without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1001,3 +1004,323 @@ def test_tool_on_card_equals_cpu(name):
 
     assert same(_cpu(_tool_case(name, "cuda")), _tool_case(name, "cpu"))
 
+
+
+# ------------------------------------------------------ the portal ordering
+@pytest.fixture(scope="module")
+def boxgrid():
+    """Box-grid scenes at the benchmark's sizes, built on the card at
+    first use and kept: n_tris -> (tris [n, 3, 3] on the card, tree,
+    treelet scene). `sponza_class(n, seed=0)`, `build_default` at
+    quality HIGH, then `build_wide_treelets` at max_prims 1024; the 10M
+    scene takes the two-level cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.build.default import (
+        DefaultConfig,
+        Quality,
+        build_default,
+    )
+    built = {}
+
+    def get(n):
+        if n not in built:
+            tris = torch.from_numpy(sponza_class(n, seed=0)).cuda()
+            tri = Tri(tris[:, 0], tris[:, 1], tris[:, 2])
+            bb_min, bb_max = tri.get_bbox()
+            bvh = build_default(bb_min, bb_max, tri.get_center(),
+                                DefaultConfig(quality=Quality.HIGH))
+            flat = PrecomputedTri.from_tri(tri).as_flat()
+            built[n] = (tris, bvh, wt.build_wide_treelets(bvh, flat,
+                                                          max_prims=1024))
+        return built[n]
+    return get
+
+
+def _interior_rays(tris, side=1024):
+    """1024 x 1024 pinhole rays (cli/camera.py) from inside the box grid:
+    the eye 3 units up where the corridors cross beside the grid's middle
+    column (columns every 2 units, at most 1.2 wide), looking along a yaw
+    of 0.6 rad and 10 degrees down, past many treelets."""
+    k = max(1, int(np.sqrt(tris.shape[0] // 2 // 12)))
+    mid = 2.0 * (k // 2) + 1.6
+    yaw, pitch = 0.6, -np.radians(10.0)
+    d = np.array([np.cos(pitch) * np.cos(yaw), np.sin(pitch),
+                  np.cos(pitch) * np.sin(yaw)])
+    return primary_rays(np.array([mid, 3.0, mid]), d,
+                        np.array([0.0, 1.0, 0.0]), side, side,
+                        device="cuda")
+
+
+def _shadow_rays(tris, count=1 << 20, lights=16, seed=0):
+    """`count` shadow rays of a path tracer: origins uniform on uniformly
+    drawn triangles, each toward one of `lights` point lights 10 to 14
+    units above the grid, direction light - origin, tmin 1e-4, tmax 1."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    lo = tris.reshape(-1, 3).amin(0)
+    hi = tris.reshape(-1, 3).amax(0)
+    u = torch.rand((lights, 3), generator=g, device="cuda")
+    light = lo + u * (hi - lo)
+    light[:, 1] = 10.0 + 4.0 * u[:, 1]
+    tri = torch.randint(tris.shape[0], (count,), generator=g, device="cuda")
+    which = torch.randint(lights, (count,), generator=g, device="cuda")
+    a, b = torch.rand((2, count, 1), generator=g, device="cuda")
+    a = torch.sqrt(a)
+    p = tris[tri]
+    org = (1 - a) * p[:, 0] + a * (1 - b) * p[:, 1] + a * b * p[:, 2]
+    return Ray(org.contiguous(), (light[which] - org).contiguous(),
+               torch.full((count,), 1e-4, device="cuda"),
+               torch.ones(count, device="cuda"))
+
+
+RAYS = {"interior": _interior_rays, "shadow": _shadow_rays}
+
+
+def _plain_ordering(monkeypatch):
+    """Make the render driver order portals with the plain versions."""
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    for name in ("sort_columns", "split_columns", "merge_columns"):
+        monkeypatch.setattr(wt, name, getattr(ps, f"{name}_plain"))
+
+
+def _same_ordering(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+
+
+# records like the benchmark's render cells': (triangles, rays, MP or None
+# for the render's own cap)
+BOXGRID_CASES = {"262k_interior": (262_144, "interior", None),
+                 "262k_shadow": (262_144, "shadow", None),
+                 "10m_interior_mp256": (10_000_000, "interior", 256),
+                 "10m_interior_mp512": (10_000_000, "interior", 512)}
+
+
+@pytest.mark.parametrize("case", sorted(BOXGRID_CASES))
+def test_portal_sort_kernel_on_phase_a_records(boxgrid, case):
+    """The ordering kernel on B2's real records of box-grid scenes at the
+    benchmark's sizes, from inside the grid and for shadow rays, equals
+    torch's stable sort of the padded columns on the card, bit for bit:
+    the sort, and at 10M the two-level split."""
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    n, kind, MP = BOXGRID_CASES[case]
+    tris, _, tl = boxgrid(n)
+    packed = wt.pack_rays(RAYS[kind](tris))
+    caps = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
+    MP = MP or caps["max_portals"]
+    ptid, ptent, stats = col.collect_portals(
+        tl.top_node_t, packed, tl.top_root, robust=False,
+        stack_depth=tl.top_depth + 1, max_portals=MP)
+    cnt = stats[0]
+    sel = torch.nonzero(cnt > 0).squeeze(1)
+    assert sel.numel() > packed.shape[1] // 4
+    before = kernels.PORTAL_SORT.launches
+    _same_ordering(ps.sort_columns(ptid, ptent, cnt, sel),
+                   ps.sort_columns_plain(ptid, ptent, cnt, sel))
+    assert kernels.PORTAL_SORT.launches == before + 1
+    T = tl.table.shape[0]
+    if tl.sup_cols.shape[0]:
+        kw = dict(T=T, mps=caps["mps"])
+        _same_ordering(ps.split_columns(ptid, ptent, cnt, sel, **kw),
+                       ps.split_columns_plain(ptid, ptent, cnt, sel, **kw))
+        assert kernels.PORTAL_SORT.launches == before + 2
+
+
+def _crafted_records(MP, R, T, seed, long_every=0, long_n=500):
+    """Phase-A-shaped records [MP, R] on the card: counts 0, a few,
+    exactly MP and past MP (and `long_n` every `long_every`th ray),
+    entry t drawn from a few values, so that keys tie, with -0.0, +0.0,
+    +-inf and +-NaN mixed in; ids below T are treelets, from T supers."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, 9, R)
+    cnt[::7] = 0
+    cnt[3::11] = MP
+    cnt[5::13] = MP + 3
+    if long_every:
+        cnt[1::long_every] = long_n
+    ptid = np.full((MP, R), -1, np.int32)
+    ptent = np.full((MP, R), np.inf, np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, 2.0],
+                       np.float32)
+    special_bits = special.view(np.uint32).copy()
+    special_bits[4] = 0xffc00000                      # -NaN
+    special = np.concatenate([special, np.array([np.nan], np.float32),
+                              special_bits[4:5].view(np.float32)])
+    for c in range(R):
+        k = min(int(cnt[c]), MP)
+        ptid[:k, c] = rng.integers(0, T + 8, k)
+        t = rng.integers(0, 5, k).astype(np.float32)
+        pick = rng.random(k) < 0.15
+        t[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+        ptent[:k, c] = t
+    dev = "cuda"
+    return (torch.from_numpy(ptid).to(dev), torch.from_numpy(ptent).to(dev),
+            torch.from_numpy(cnt.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("MP, long_every", [(16, 0), (64, 0), (600, 37)])
+@pytest.mark.parametrize("split", [False, True])
+def test_portal_sort_kernel_crafted(MP, long_every, split):
+    """Equal keys, -0.0 beside +0.0, valid +-inf and +-NaN records, counts
+    of 0, exactly MP and past MP, and (at MP 600) 500-record rays among
+    short ones: the kernel equals torch's stable sort on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    T = 40
+    ptid, ptent, cnt = _crafted_records(MP, 3000, T, seed=MP,
+                                        long_every=long_every)
+    sel = torch.nonzero(cnt >= 0).squeeze(1)[1:]   # a count of 0 kept too
+    if split:
+        for mps in (1, 4, 64):
+            _same_ordering(
+                ps.split_columns(ptid, ptent, cnt, sel, T=T, mps=mps),
+                ps.split_columns_plain(ptid, ptent, cnt, sel, T=T, mps=mps))
+    else:
+        _same_ordering(ps.sort_columns(ptid, ptent, cnt, sel),
+                       ps.sort_columns_plain(ptid, ptent, cnt, sel))
+
+
+@pytest.mark.parametrize("max_new, special", [(4, False), (4, True),
+                                              (40, True)])
+def test_portal_merge_kernel_crafted(max_new, special):
+    """Three A2 rounds of merges into split lists at MP 48, on a few
+    thousand rays, each round's window slots filled or not, counts past
+    max_new; new keys tie with each other and with the lists' (and, with
+    `special`, -0.0, +-inf and +-NaN; with max_new 40 some rays take
+    more than a thread sorts alone): the kernel's lists, lengths and
+    finite counts equal the plain merge's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.traverse import portal_sort as ps
+    T, MP, dev = 40, 48, "cuda"
+    ptid, ptent, cnt = _crafted_records(MP, 4000, T, seed=max_new)
+    if not special:
+        ptent = torch.where(torch.isfinite(ptent) | (ptid < 0), ptent, 1.5)
+        ptent = torch.where(ptent == 0, 0.5, ptent)
+    sel = torch.nonzero(cnt > 0).squeeze(1)
+    lists = ps.split_columns_plain(ptid, ptent, cnt, sel, T=T, mps=8)
+    got = [x.clone() for x in (lists[0], lists[1], lists[4])]
+    want = [x.clone() for x in got]
+    rng = np.random.default_rng(max_new)
+    Rc = sel.numel()
+    for _ in range(3):
+        rsel = torch.from_numpy(np.sort(rng.choice(Rc, Rc // 2,
+                                                   replace=False))).to(dev)
+        Rr = rsel.numel()
+        slots = rng.random((wt.K2, Rr)) < 0.8
+        jj, rr = (torch.from_numpy(x).to(dev) for x in np.nonzero(slots))
+        perm = torch.from_numpy(rng.permutation(jj.numel())).to(dev)
+        jj, rr = jj[perm], rr[perm]
+        L = jj.numel()
+        ncnt = rng.integers(0, max_new + 3, L)
+        ntid = np.full((max_new, L), -1, np.int32)
+        nt = np.full((max_new, L), np.inf, np.float32)
+        for i in range(L):
+            k = min(int(ncnt[i]), max_new)
+            ntid[:k, i] = rng.integers(0, T, k)
+            nt[:k, i] = rng.integers(0, 5, k)
+            if special:
+                pick = rng.random(k) < 0.1
+                nt[:k, i][pick] = np.array(
+                    [-0.0, np.inf, -np.inf, np.nan], np.float32)[
+                    rng.integers(0, 4, int(pick.sum()))]
+        ntid, nt = torch.from_numpy(ntid).to(dev), torch.from_numpy(nt).to(dev)
+        ncnt = torch.from_numpy(ncnt.astype(np.int32)).to(dev)
+        before = kernels.PORTAL_MERGE.launches
+        f_got = ps.merge_columns(*got, rsel, jj, rr, ntid, nt, ncnt, k2=wt.K2,
+                                 max_new=max_new)
+        assert kernels.PORTAL_MERGE.launches == before + 1
+        f_want = ps.merge_columns_plain(*want, rsel, jj, rr, ntid, nt, ncnt,
+                                        k2=wt.K2, max_new=max_new)
+        _same_ordering(got + [f_got], want + [f_want])
+
+
+@pytest.fixture(scope="module")
+def small_two_level():
+    """sponza_class(3000, 3), a MEDIUM tree, cut at max_prims 128 under
+    supers of 512 (the two-level scene of the CPU tests), 32x32 primary
+    rays, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bvh_tpu_torch.build.default import (
+        DefaultConfig,
+        Quality,
+        build_default,
+    )
+    tris = sponza_class(3000, seed=3)
+    tt = torch.from_numpy(tris)
+    bvh = build_default(tt.min(1).values, tt.max(1).values, tt.mean(1),
+                        DefaultConfig(quality=Quality.MEDIUM))
+    flat = PrecomputedTri.from_tri(Tri(tt[:, 0], tt[:, 1], tt[:, 2])).as_flat()
+    eye, d, up = scene_camera(tris)
+    rays = primary_rays(eye, d, up, 32, 32, device="cuda")
+    tl = wt.build_wide_treelets(bvh, flat, max_prims=128, super_prims=512,
+                                device="cuda")
+    assert tl.sup_cols.shape[0] > 1
+    return tl, rays, bvh.prim_ids.cuda()
+
+
+@pytest.mark.parametrize("caps", ["render", "mps", "max_new", "max_portals"])
+def test_expand_supers_kernel_equals_plain(small_two_level, monkeypatch,
+                                           caps):
+    """Phase A2 with the ordering kernel (split and merges) against the
+    same with the plain ordering: treelet lists, overflow bits 1, 2, 4
+    and diag equal."""
+    tl, rays, _ = small_two_level
+    packed = wt.pack_rays(rays)
+    c = dict(wt.wide_treelet_caps(tl, wt.portals_per_round(tl)),
+             **{"render": {}, "mps": dict(mps=1), "max_new": dict(max_new=1),
+                "max_portals": dict(max_portals=8)}[caps])
+    kw = dict(robust=False, top_stack=tl.top_depth + 1,
+              max_portals=c["max_portals"], mps=c["mps"])
+    a2 = dict(robust=False, sup_stack=tl.sup_depth + 1, mps=c["mps"],
+              max_new=c["max_new"], max_portals=c["max_portals"])
+
+    def run():
+        portals = wt.collect_and_sort(tl, packed, **kw)
+        return wt.expand_supers(tl, portals, packed[:, portals.sel], **a2)
+
+    before = kernels.PORTAL_MERGE.launches
+    got = run()
+    assert kernels.PORTAL_MERGE.launches - before == got[3]["a2_rounds"] > 0
+    _plain_ordering(monkeypatch)
+    want = run()
+    _same_ordering(got[:2], want[:2])
+    assert got[2:] == want[2:]
+    assert (got[2] != 0) == (caps != "render")
+
+
+RENDER_CASES = {"262k_interior": (262_144, "interior", False),
+                "262k_shadow": (262_144, "shadow", True),
+                "10m_interior": (10_000_000, "interior", False),
+                "small_two_level": (None, None, False)}
+
+
+@pytest.mark.parametrize("case", sorted(RENDER_CASES))
+def test_render_with_portal_kernel_equals_plain_ordering(
+        boxgrid, small_two_level, monkeypatch, case):
+    """The entry point's render with the ordering kernel against the same
+    render with the plain ordering, hit for hit and bit for bit, on the
+    box-grid scenes at the benchmark's sizes and the small two-level
+    one."""
+    n, kind, any_hit = RENDER_CASES[case]
+    if n is None:
+        tl, rays, prim_ids = small_two_level
+    else:
+        tris, bvh, tl = boxgrid(n)
+        rays, prim_ids = RAYS[kind](tris), bvh.prim_ids
+    before = kernels.PORTAL_SORT.launches
+    got, diag = wt.wide_treelet_intersect_tris(
+        tl, rays, prim_ids, any_hit=any_hit, return_diag=True)
+    assert kernels.PORTAL_SORT.launches > before
+    _plain_ordering(monkeypatch)
+    want, want_diag = wt.wide_treelet_intersect_tris(
+        tl, rays, prim_ids, any_hit=any_hit, return_diag=True)
+    for f in ("t", "u", "v", "prim_pos", "prim_id"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+    assert diag == want_diag
+    assert int(torch.isfinite(got.t).sum()) > 0

@@ -113,8 +113,9 @@ def test_traverse_count_equals_plain(scene, count):
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_chain_equals_entry_point(scene, k, any_hit):
     """The captured chain's t row equals the eager entry point's element
-    by element; B2 and B1 launch during its capture, once and `rounds`
-    times, and the graph holds their kernel nodes."""
+    by element; B2, the portal sort and B1 launch during its capture,
+    once, once and `rounds` times, and the graph holds their kernel
+    nodes."""
     tl, rays = scene
     rays = rays[any_hit]
     want = wt.wide_treelet_intersect_tris(tl, rays, any_hit=any_hit)
@@ -125,6 +126,7 @@ def test_chain_equals_entry_point(scene, k, any_hit):
     assert torch.equal(_bits(got[:R]), _bits(want.t))
     assert torch.isinf(got[R:]).all()
     assert chain.capture_launches == {kernels.COLLECT.name: 1,
+                                      kernels.PORTAL_SORT.name: 1,
                                       kernels.WIDE_TREELET.name: chain.rounds}
     assert chain.graph_nodes["kernel"] > chain.rounds
     assert torch.equal(_bits(chain()[:R]), _bits(want.t))

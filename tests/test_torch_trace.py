@@ -143,7 +143,8 @@ def test_on_spans_nest_and_counters_equal_the_diag(scene, any_hit):
     assert delta == {"wide_treelet.calls": 1, "wide_treelet.attempts": 1,
                      "wide_treelet.rounds": rounds,
                      "wide_treelet.pairs": diag["pairs"],
-                     "wide_treelet.a2_rounds": 0}
+                     "wide_treelet.a2_rounds": 0,
+                     "wide_treelet.portal_sorts": 1}
     outer = named(spans, "bvh.render")
     attempts = named(spans, "bvh.render.attempt")
     assert len(outer) == 1 and len(attempts) == 1
@@ -266,3 +267,22 @@ def test_spans_add_no_device_operation(scene, monkeypatch):
     assert not [o for o in without.host if o.name.startswith("bvh.")]
     n = len(with_spans.device_in(tracing.SPAN_FRAME))
     assert n == len(without.device_in(tracing.SPAN_FRAME)) > 0
+
+
+@pytest.mark.parametrize("levels", ["one", "two"])
+def test_portal_sorts_count_every_ordering(scene, monkeypatch, levels):
+    """wide_treelet.portal_sorts counts each call of the portal ordering:
+    one sort an attempt, forced re-runs included, and in a two-level cut
+    one merge more for every A2 round."""
+    if levels == "one":
+        (_, diag), _, delta = traced(
+            lambda: render(scene, max_portals=1, auto_caps=True))
+        assert delta["wide_treelet.attempts"] >= 2
+        assert delta["wide_treelet.a2_rounds"] == 0
+    else:
+        tl = wt.build_wide_treelets(scene.bvh, scene.flat, max_prims=128,
+                                    super_prims=512)
+        (_, diag), _, delta = traced(lambda: render(scene, tl))
+        assert delta["wide_treelet.a2_rounds"] == diag["a2_rounds"] > 0
+    assert delta["wide_treelet.portal_sorts"] == \
+        delta["wide_treelet.attempts"] + delta["wide_treelet.a2_rounds"]
