@@ -12,11 +12,12 @@ picks the loop:
   `wide_treelet_intersect_tris` on the next ray set, then
   `torch.cuda.synchronize()`;
 - "build": scene variants made in set-up, then scene builds in a
-  closed loop, each on the next variant: the port's `build_default`
-  (quality high), then `build_wide_treelets`, synchronised.
+  closed loop, each on the next variant: the port's `build_default`,
+  then `build_wide_treelets`, synchronised.
 
 The program is called through its public entries only, with no tuning
-key but the cut's `max_prims` from the configuration.
+key but the configuration's `build_quality` (`build_default`'s quality:
+low, medium or high) and the cut's `max_prims`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHECK_STREAM = 300
 FORBIDDEN = ("jax", "jaxlib", "flax", "bvh_tpu")
+QUALITIES = ("low", "medium", "high")   # build_default's Quality values
 
 
 def load_json(path):
@@ -109,12 +111,24 @@ def release(device) -> None:
         torch.cuda.empty_cache()
 
 
+def build_quality(config: dict) -> str:
+    """The configuration's `build_quality`; a ValueError that names it
+    if it is not one of `QUALITIES`."""
+    quality = config.get("build_quality")
+    if quality not in QUALITIES:
+        raise ValueError(f"configuration {config.get('name')!r}: "
+                         f"build_quality {quality!r} is not one of "
+                         f"{', '.join(QUALITIES)}")
+    return quality
+
+
 # ------------------------------------------------------- the program
-def scene_build(tris, max_prims: int, spans=None):
+def scene_build(tris, config: dict, spans=None):
     """Triangles on the card -> (tree, treelet scene), through the
-    port's public entries: `build_default` at quality high, then
-    `build_wide_treelets`, each in a span and synchronised. `spans`, if
-    given, gets each stage's host-clock seconds under its span name."""
+    port's public entries: `build_default` at the configuration's
+    `build_quality`, then `build_wide_treelets` at its `max_prims`,
+    each in a span and synchronised. `spans`, if given, gets each
+    stage's host-clock seconds under its span name."""
     from torch.profiler import record_function
 
     from bvh_tpu_torch.build import default
@@ -128,12 +142,14 @@ def scene_build(tris, max_prims: int, spans=None):
             bb_min, bb_max = tri.get_bbox()
             bvh = default.build_default(
                 bb_min, bb_max, tri.get_center(),
-                default.DefaultConfig(quality=default.Quality.HIGH))
+                default.DefaultConfig(
+                    quality=default.Quality(build_quality(config))))
             sync(tris.device)
         t1 = time.perf_counter()
         with record_function(tracing.SPAN_CUT):
             flat = PrecomputedTri.from_tri(tri).as_flat()
-            tl = wt.build_wide_treelets(bvh, flat, max_prims=max_prims)
+            tl = wt.build_wide_treelets(bvh, flat,
+                                        max_prims=config["max_prims"])
             sync(tris.device)
     if spans is not None:
         spans[tracing.SPAN_TREE].append(t1 - t0)
@@ -262,7 +278,7 @@ def run_render(config, traffic, seed, seconds, trace, device, ctx):
     # the configuration's one fixed scene; the seed makes the rays
     tris = scenes.sponza_class(config["n_tris"], config["scene_seed"], device)
     stage(ctx, "scene")
-    bvh, tl = scene_build(tris, config["max_prims"])
+    bvh, tl = scene_build(tris, config)
     stage(ctx, "build")
     supers = int(tl.sup_cols.shape[0])
     if supers == 0 and config.get("two_level"):
@@ -299,14 +315,14 @@ def run_build(config, traffic, seed, seconds, trace, device, ctx):
     variants = [scenes.sponza_class(config["n_tris"], seed, device, v)
                 for v in range(traffic["variants"])]
     stage(ctx, "scenes")
-    scene_build(variants[-1], config["max_prims"])      # warm up
+    scene_build(variants[-1], config)      # warm up
     stage(ctx, "warm-up")
     ctx["setup_s"] = time.perf_counter() - ctx["t0"]
     last = {}
 
     def step(i, spans):
         k = i % len(variants)
-        bvh, tl = scene_build(variants[k], config["max_prims"], spans)
+        bvh, tl = scene_build(variants[k], config, spans)
         last.update(k=k, bvh=bvh, tl=tl)
         return 1, None
 
@@ -340,6 +356,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     ctx = {"t0": time.perf_counter() if t0 is None else t0,
            "spans": {}}
     manifest, wl, config, traffic = cell_data or cell(workload)
+    build_quality(config)                      # refused before any build
     ctx.update(kind=traffic["kind"], config=config, traffic=traffic)
     stage(ctx, "start")
     import bvh_tpu_torch.build.default  # noqa: F401 - the program's import

@@ -1,6 +1,6 @@
 """Ray sets made on the card, by the rules of a traffic file.
 
-Two generators, chosen by the traffic file's `rays.kind`:
+Three generators, chosen by the traffic file's `rays.kind`:
 
 - "pinhole": the upstream benchmark's pinhole camera
   (test/benchmark.cpp:343-359; the port's `cli/camera.py`): through
@@ -15,6 +15,24 @@ Two generators, chosen by the traffic file's `rays.kind`:
   points on uniformly drawn triangles of the scene; each ray runs
   toward one of `lights` point lights above the grid, with the
   unnormalised direction light - origin, tmin `tmin` and tmax 1.
+- "diffuse": a path tracer's diffuse bounce, closest hit (Aila and
+  Laine, HPG 2009). Each ray leaves a uniform point of the scene's
+  surface: a triangle drawn with probability proportional to its area
+  (the inverse of a float64 running sum of the areas), then a uniform
+  point on it by the square-root rule `shadow` uses. Its direction is
+  cosine-weighted on the hemisphere of the side it leaves: a uniform
+  point of the unit disk lifted to the hemisphere (Malley's method),
+  on an orthonormal frame of that side's unit normal, in float64,
+  normalised, then cast to float32; tmin `tmin`, tmax the largest
+  float32. The side: with n = (p1 - p0) x (p2 - p0), the box grid's
+  triangles (its first 12 * grid_side(n_tris)**2 rows) face into
+  their box (`scenes.CUBE_FACES`; the tests check it), so their rays
+  leave about -n, out of the box; the detail triangles are two-sided
+  slivers, and each ray draws its side. Departure from a path
+  tracer: the origins are points of every surface, not the camera's
+  visible hits. A float64 reference cannot find a million primary
+  hits among 10M triangles in a run's time, and taking the program's
+  own hits would make the traffic depend on the code under test.
 
 The sets are drawn from the traffic's own `ray_seed`, so every run gets
 the same sets and the same work; the run's seed orders the frames (and
@@ -36,6 +54,7 @@ from raybench import scenes
 
 POSE_STREAM = 100
 SHADOW_STREAM = 200
+DIFFUSE_STREAM = 400
 ORDER_STREAM = 500
 
 
@@ -139,7 +158,67 @@ def shadow_sets(spec: dict, tris, seed: int):
     return in_order(sets, seed)
 
 
-GENERATORS = {"pinhole": pinhole_sets, "shadow": shadow_sets}
+def area_cdf(tris):
+    """[n] float64 running sum of the triangles' doubled areas, and the
+    [n, 3] float64 geometric normals n = (p1 - p0) x (p2 - p0) under it."""
+    p = tris.to(torch.float64)
+    n = torch.linalg.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    return torch.cumsum(torch.linalg.vector_norm(n, dim=1), 0), n
+
+
+def diffuse_draw(tris, cdf, normals, count: int, g):
+    """`count` diffuse rays over the scene `tris`, by `area_cdf`'s sum
+    and normals: float64 origins [R, 3] and unit directions [R, 3], the
+    triangle each leaves [R] and the unit normal of its side [R, 3]."""
+    device = tris.device
+    n = tris.shape[0]
+    boxes = 12 * scenes.grid_side(n) ** 2
+    u = torch.rand((6, count), generator=g, device=device,
+                   dtype=torch.float64)
+    tri = torch.searchsorted(cdf, u[0] * cdf[-1], right=True)
+    tri = tri.clamp_(max=n - 1)
+    a = torch.sqrt(u[1])[:, None]
+    b = u[2][:, None]
+    p = tris[tri].to(torch.float64)
+    org = (1 - a) * p[:, 0] + a * (1 - b) * p[:, 1] + a * b * p[:, 2]
+    side = torch.where((tri < boxes) | (u[3] < 0.5), -1.0, 1.0)
+    nrm = normals[tri]
+    nrm = nrm * (side / torch.linalg.vector_norm(nrm, dim=1))[:, None]
+    # Malley: a uniform point of the unit disk, lifted to the hemisphere
+    r = torch.sqrt(u[4])
+    phi = 2 * math.pi * u[5]
+    x, y = r * torch.cos(phi), r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp(1 - u[4], min=0))
+    # an orthonormal frame (t, s, nrm) (Duff et al., JCGT 2017)
+    nx, ny, nz = nrm.unbind(1)
+    sg = torch.where(nz >= 0, 1.0, -1.0)
+    h = -1 / (sg + nz)
+    k = nx * ny * h
+    t = torch.stack([1 + sg * nx * nx * h, sg * k, -sg * nx], dim=1)
+    s = torch.stack([k, sg + ny * ny * h, -ny], dim=1)
+    d = x[:, None] * t + y[:, None] * s + z[:, None] * nrm
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    return org, d, tri, nrm
+
+
+def diffuse_sets(spec: dict, tris, seed: int):
+    device = tris.device
+    g = scenes.generator(spec["ray_seed"], DIFFUSE_STREAM, device)
+    cdf, normals = area_cdf(tris)
+    R = int(spec["count"])
+    sets = []
+    for _ in range(int(spec["sets"])):
+        org, d, _, _ = diffuse_draw(tris, cdf, normals, R, g)
+        tmin = torch.full((R,), float(spec["tmin"]), device=device)
+        tmax = torch.full((R,), torch.finfo(torch.float32).max,
+                          device=device)
+        sets.append((org.to(torch.float32), d.to(torch.float32), tmin,
+                     tmax))
+    return in_order(sets, seed)
+
+
+GENERATORS = {"pinhole": pinhole_sets, "shadow": shadow_sets,
+              "diffuse": diffuse_sets}
 
 
 def ray_sets(spec: dict, tris, seed: int):

@@ -20,7 +20,26 @@ from raybench import harness  # noqa: E402
 def tiny(workload: str):
     """(manifest, workload, configuration, traffic) of a cell, cut to a
     size the CPU runs in seconds."""
-    manifest, wl, config, traffic = copy.deepcopy(harness.cell(workload))
+    return cut(*copy.deepcopy(harness.cell(workload)))
+
+
+def tiny_cell(config: str, traffic: str):
+    """`tiny` of a cell that BENCHMARK.json does not hold: the
+    configuration and the traffic file found by name, under the
+    workload name `<config>.<traffic>`, reporting only `setup_s`."""
+    manifest = harness.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    entry = {c["name"]: c for c in manifest["configs"]}[config]
+    wl = {"name": f"{config}.{traffic}", "config": config,
+          "traffic": traffic, "chips": 1, "why": "a CPU test"}
+    return cut(manifest, wl,
+               harness.load_json(os.path.join(ROOT, entry["file"])),
+               harness.load_json(os.path.join(ROOT, "raybench", "traffic",
+                                              traffic + ".json")))
+
+
+def cut(manifest, wl, config, traffic):
+    """The cell's configuration and traffic cut, in place, to `tiny`'s
+    size."""
     config.update(n_tris=3000, max_prims=128, two_level=False)
     for spec in (traffic.get("rays"), traffic["check"].get("rays")):
         if spec and spec["kind"] == "pinhole":

@@ -12,12 +12,21 @@ from bvh_tpu_torch.core.types import INVALID_PRIM_ID
 from bvh_tpu_torch.geom.tri import PrecomputedTri, Tri
 from raybench import control, harness, judge, rays, scenes
 from raybench.reference import intersect, tree
-from raybench.tests.conftest import tiny
+from raybench.tests.conftest import tiny, tiny_cell
+
+CELLS = {w["name"] for w in harness.cell("boxgrid_262k.interior")[0][
+    "workloads"]}
+
+
+def tiny_any(workload):
+    """`tiny` of a cell of BENCHMARK.json, else `tiny_cell` by its name."""
+    return tiny(workload) if workload in CELLS else tiny_cell(
+        *workload.split("."))
 
 
 def scene_and_rays(workload="boxgrid_262k.interior", n=64):
     tris = scenes.sponza_class(3000, 0, "cpu")
-    ray = rays.ray_sets(tiny(workload)[3]["rays"], tris, 5)[0]
+    ray = rays.ray_sets(tiny_any(workload)[3]["rays"], tris, 5)[0]
     g = torch.Generator().manual_seed(1)
     idx = torch.randperm(ray[0].shape[0], generator=g)[:n]
     return tris, tuple(x[idx] for x in ray)
@@ -36,7 +45,8 @@ def port_brute_force(tris, ray, any_hit=False):
 
 
 @pytest.mark.parametrize("workload", ["boxgrid_262k.interior",
-                                      "boxgrid_262k.shadow"])
+                                      "boxgrid_262k.shadow",
+                                      "boxgrid_262k.diffuse"])
 def test_brackets_hold_the_float32_answer(workload):
     tris, ray = scene_and_rays(workload)
     best, prim = port_brute_force(tris, ray)
@@ -118,6 +128,54 @@ def test_sound_run_is_correct(one_thread):
     assert list(out)[-1] == "check"
 
 
+def test_diffuse_run_is_correct(one_thread):
+    """The diffuse traffic through the render loop, in a cell that
+    BENCHMARK.json does not hold yet."""
+    out = harness.run_cell("boxgrid_262k.diffuse", 3, 0.5, False, "cpu",
+                           cell_data=tiny_any("boxgrid_262k.diffuse"))
+    assert out["correct"], out["check"]
+    assert out["check"]["late_hits"]["limit"] == 3
+
+
+def with_quality(workload, quality):
+    data = tiny(workload)
+    data[2]["build_quality"] = quality
+    return data
+
+
+def test_unknown_build_quality_is_refused_before_any_build(monkeypatch):
+    def no_build(*a, **kw):
+        raise AssertionError("a build ran")
+
+    monkeypatch.setattr(harness, "scene_build", no_build)
+    monkeypatch.setattr(scenes, "sponza_class", no_build)
+    for quality in ("ultra", None, "HIGH"):
+        with pytest.raises(ValueError, match=f"build_quality {quality!r}"):
+            harness.run_cell("boxgrid_262k.build_high", 3, 0.5, False, "cpu",
+                             cell_data=with_quality(
+                                 "boxgrid_262k.build_high", quality))
+
+
+def test_build_quality_reaches_build_default(monkeypatch, one_thread):
+    from bvh_tpu_torch.build import default
+
+    real = default.build_default
+    seen = []
+
+    def wrapper(bb_min, bb_max, centers, config=None):
+        seen.append(config.quality)
+        return real(bb_min, bb_max, centers, config)
+
+    monkeypatch.setattr(default, "build_default", wrapper)
+    for quality in harness.QUALITIES:
+        seen.clear()
+        out = harness.run_cell("boxgrid_262k.build_high", 3, 0.5, False,
+                               "cpu", cell_data=with_quality(
+                                   "boxgrid_262k.build_high", quality))
+        assert out["correct"], (quality, out["check"])
+        assert set(seen) == {default.Quality(quality)}
+
+
 def broken_render(monkeypatch, fault):
     from bvh_tpu_torch.traverse import wide_treelet as wt
 
@@ -181,9 +239,10 @@ def test_cells_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for workload in ("boxgrid_262k.interior", "boxgrid_262k.build_high",
-                     "boxgrid_262k.shadow"):
+                     "boxgrid_262k.shadow", "boxgrid_262k.diffuse"):
         out = harness.run_cell(workload, 3, 0.5, True, "cuda",
-                               cell_data=tiny(workload))
+                               cell_data=tiny_any(workload))
         assert out["correct"], (workload, out["check"])
         assert out["device"]["busy_s"] > 0
-        assert out["metrics"]
+        # a cell that BENCHMARK.json does not hold has no per-layer metric
+        assert out["metrics"] or workload not in CELLS

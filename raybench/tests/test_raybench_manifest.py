@@ -102,6 +102,7 @@ def test_files_found_by_name():
         assert set(c["reduced"]) <= set(cfg["reduced"])
         assert {"source", "assumed", "n_tris", "max_prims",
                 "scene_seed"} <= set(cfg)
+        assert cfg["build_quality"] in ("low", "medium", "high")
     for x in m["end_to_end"] + m["per_layer"]:
         assert callable(harness.reader(x["name"]))
 
