@@ -943,7 +943,8 @@ def sort_portals(ptid, ptent, stats, *, split=None) -> Portals:
 
 def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
                   robust: bool, sup_stack: int, mps: int, max_new: int,
-                  max_portals: int, collect_super=collect_super_pairs):
+                  max_portals: int, collect_super=collect_super_pairs,
+                  over: dict | None = None):
     """Phase A2 (wide_treelet.py:1740-1873): replace each ray's super
     portals (tid >= T) by the treelet portals inside those supers.
 
@@ -962,7 +963,18 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     mask (1: more than mps supers, 2: a pair recorded more than
     max_new, 4: a merged list longer than max_portals), and the A2
     rounds, pairs and B4's stack overflow. While a profiler records,
-    each merge adds 1 to wide_treelet.portal_sorts."""
+    each merge adds 1 to wide_treelet.portal_sorts.
+
+    `over`: None, or a dict that the render driver passes to learn which
+    rays went past a cap. Its "cols", if set, is a bool [Rc] mask of
+    columns that take no round. It then gets under "cols" None or the
+    bool [Rc] mask of those columns and the ones past mps, max_new,
+    max_portals or B4's stack (each such column takes no further round,
+    its list left as it stands), and the counts behind the caps, read
+    where the host reads the flags: "max_sup" (the most supers a ray
+    recorded), "max_rec" (the most records a pair made) and "max_len"
+    (the longest merged list before its cut). The masks cost no host
+    read. Without `over` the result is the same for every column."""
     if portals.sup is None or portals.sup.sid.shape[0] != mps:
         raise ValueError("expand_supers: the portals must be split at mps "
                          "(sort_portals(..., split=(T, mps)))")
@@ -972,12 +984,35 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     sup_id, tlen = portals.sup.sid, portals.sup.tlen
     Rc = tid.shape[1]
     bits = 0
-    if Rc and int(portals.sup.count.max()) > mps:
-        bits |= 1
+    max_sup = int(portals.sup.count.max()) if Rc else 0
     diag = dict(a2_rounds=0, a2_pairs=0, sup_ovf=False)
     scur = torch.zeros(Rc, dtype=i64, device=dev)
     lanes = torch.arange(Rc, device=dev)
     steps = torch.arange(K2, device=dev)[:, None]
+    if over is not None:
+        gone = over.get("cols")
+        over.update(cols=None, max_sup=max_sup, max_rec=0, max_len=0)
+
+    def mark(cols):
+        """The columns of the bool [Rc] mask `cols` are past a cap:
+        recorded in `over`, and retired."""
+        if over is None:
+            return
+        if over["cols"] is None:
+            over["cols"] = torch.zeros(Rc, dtype=torch.bool, device=dev)
+        over["cols"].logical_or_(cols)
+        scur.masked_fill_(cols, mps)
+
+    def pairs_past(flag):
+        """[Rc] bool: the columns of the pairs where `flag` [L] holds."""
+        return torch.zeros(Rc, dtype=torch.int32, device=dev).index_add_(
+            0, rsel[rr], flag.to(torch.int32)) > 0
+
+    if over is not None and gone is not None:
+        mark(gone)
+    if max_sup > mps:
+        bits |= 1
+        mark(portals.sup.count > mps)
     while True:
         cur = torch.where(scur < mps, sup_id.gather(
             0, scur.clamp(max=mps - 1)[None])[0], -1)
@@ -998,14 +1033,24 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
             diag["a2_rounds"] += 1
             diag["a2_pairs"] += rr.numel()
             if rr.numel():
-                if int(stats[0].max()) > max_new:
+                rec = int(stats[0].max())
+                if rec > max_new:
                     bits |= 2
-                diag["sup_ovf"] |= bool(stats[2].any())
+                    mark(pairs_past(stats[0] > max_new))
+                if bool(stats[2].any()):
+                    diag["sup_ovf"] = True
+                    mark(pairs_past(stats[2] != 0))
+                if over is not None:
+                    over["max_rec"] = max(over["max_rec"], rec)
             fcnt = merge_columns(tid, tent, tlen, rsel, jj, rr, ntid, nt,
                                  stats[0], k2=K2, max_new=max_new)
             trace.count("wide_treelet.portal_sorts", 1)
-            if int(fcnt.max()) > max_portals:
+            flen = int(fcnt.max())
+            if flen > max_portals:
                 bits |= 4
+                mark(_spread(None, Rc, rsel, fcnt > max_portals))
+            if over is not None:
+                over["max_len"] = max(over["max_len"], flen)
             scur[rsel] += K2
     return tid, tent, bits, diag
 
@@ -1108,43 +1153,91 @@ def merge_first_j(best, validk, res, *, any_hit: bool):
 def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
             stack_depth, max_portals, max_rounds, k, collect, traverse,
             collect_super, sup_stack, mps, max_new, stage=run_stage):
-    """One render at fixed capacities. Returns the per-ray best hit
-    (t, u, v, pos), phase-A counts, the round count and the overflow
-    observations the caller checks. Each stage runs through `stage`:
-    phase_a, portal_sort, phase_a2 (two-level scenes), then per round
-    ready, round_pairs, b1 and merge_round."""
+    """One render at fixed capacities: `_prepare`, then `_pair_rounds`.
+    Returns the per-ray best hit (t, u, v, pos), phase-A counts and the
+    diag: the round count, the overflow observations the caller checks
+    and, under "overflow", None or the bool [R] mask of the rays past a
+    cap, whose outputs are not hits; every other ray keeps its hit. Each
+    stage runs through `stage`: phase_a, portal_sort, phase_a2
+    (two-level scenes), then per round ready, round_pairs, b1 and
+    merge_round."""
     R = packed.shape[1]
-    dev = packed.device
-    f32, i64 = torch.float32, torch.int64
+    portals, rays_c, late, diag = _prepare(
+        tl, packed, robust=robust, top_stack=top_stack,
+        max_portals=max_portals, mps=mps, max_new=max_new,
+        sup_stack=sup_stack, collect=collect, collect_super=collect_super,
+        stage=stage)
+    best, late = _pair_rounds(tl, portals, rays_c, late, diag,
+                              any_hit=any_hit, robust=robust,
+                              stack_depth=stack_depth, max_rounds=max_rounds,
+                              k=k, traverse=traverse, stage=stage)
+    out = _no_hits(R, packed.device)
+    for o, b in zip(out, best):
+        o[portals.sel] = b
+    if late is not None:
+        diag["overflow"] = _spread(diag["overflow"], R, portals.sel, late)
+    return (*out, portals.cnt, diag)
+
+
+def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
+             mps, max_new, sup_stack, collect, collect_super, stage):
+    """Each ray's portal list: phase A, its ordering and, in two-level
+    scenes, phase A2, of [8, R] packed rays. Returns (portals, rays_c,
+    late, diag): the lists of the rays that entered a treelet box
+    (`portals.sel` their indices), their packed rays [8, Rc], None or
+    the bool [Rc] mask of the lists past a cap (phase A's max_portals or
+    stack, A2's mps, max_new, max_portals or stack), which are not
+    worked further, and the diag, whose "overflow" is None or the bool
+    [R] mask of the rays past phase A's caps, and whose counts say how
+    far past: max_cnt (phase A's largest portal count) and, in two-level
+    scenes, max_sup, max_rec and max_len (`expand_supers`' `over`). The
+    masks are made, without a host read, only once a flag the host
+    reads anyway is up, so lists that fit every cap cost no launch and
+    no host read more."""
     two_level = tl.sup_cols.shape[0] > 0
-    portals = stage("portal_sort", sort_portals, *stage(
-        "phase_a", collect, tl.top_node_t, packed, tl.top_root,
-        robust=robust, stack_depth=top_stack, max_portals=max_portals),
-        split=(tl.table.shape[0], mps) if two_level else None)
+    records = stage("phase_a", collect, tl.top_node_t, packed, tl.top_root,
+                    robust=robust, stack_depth=top_stack,
+                    max_portals=max_portals)
+    portals = stage("portal_sort", sort_portals, *records,
+                    split=(tl.table.shape[0], mps) if two_level else None)
     trace.count("wide_treelet.portal_sorts", 1)
     diag = dict(max_cnt=portals.max_cnt,
                 top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
                 stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
-                pending=False, a2_bits=0)
-    out_t = torch.full((R,), float("inf"), dtype=f32, device=dev)
-    out_u = torch.zeros(R, dtype=f32, device=dev)
-    out_v = torch.zeros(R, dtype=f32, device=dev)
-    out_pos = torch.full((R,), -1, dtype=i64, device=dev)
+                pending=False, a2_bits=0, max_sup=0, max_rec=0, max_len=0,
+                overflow=None)
+    late = None
     if diag["max_cnt"] > max_portals or diag["top_ovf"]:
-        return out_t, out_u, out_v, out_pos, portals.cnt, diag
-
-    sel = portals.sel
-    Rc = sel.numel()
-    rays_c = packed[:, sel]
+        # phase A's lists of these rays are cut: they go no further
+        diag["overflow"] = (portals.cnt > max_portals) | (records[2][2] != 0)
+        late = diag["overflow"][portals.sel]
+    del records
+    rays_c = packed[:, portals.sel]
     if two_level:
+        over = dict(cols=late)
         tid, tent, bits, a2 = stage(
             "phase_a2", expand_supers, tl, portals, rays_c, robust=robust,
             sup_stack=sup_stack, mps=mps, max_new=max_new,
-            max_portals=max_portals, collect_super=collect_super)
-        diag.update(a2, a2_bits=bits)
-        if bits or a2["sup_ovf"]:
-            return out_t, out_u, out_v, out_pos, portals.cnt, diag
+            max_portals=max_portals, collect_super=collect_super, over=over)
+        late = over.pop("cols")
+        diag.update(a2, a2_bits=bits, **over)
         portals = portals._replace(tid=tid, tent=tent)
+    return portals, rays_c, late, diag
+
+
+def _pair_rounds(tl: WideTreelets, portals: Portals, rays_c, late, diag, *,
+                 any_hit, robust, stack_depth, max_rounds, k, traverse,
+                 stage):
+    """The pair rounds over the sorted lists portals.tid, .tent
+    [MP, Rc] of the packed rays rays_c [8, Rc]; the columns set in
+    `late` (None or a bool [Rc] mask) take no round. Returns the best
+    hits (t, u, v, pos), each [Rc], and a copy of `late` with the
+    columns past B1's stack or max_rounds set too; diag's rounds,
+    pairs, stack_hwm, stack_ovf and pending are updated in place."""
+    dev = rays_c.device
+    f32, i64 = torch.float32, torch.int64
+    Rc = rays_c.shape[1]
+    mp = portals.tid.shape[0]
     octant = octants(rays_c)
     tmax = rays_c[7].clone()
     bt = torch.full((Rc,), float("inf"), dtype=f32, device=dev)
@@ -1152,6 +1245,8 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
     bv = torch.zeros(Rc, dtype=f32, device=dev)
     bpos = torch.full((Rc,), -1, dtype=i64, device=dev)
     cur = torch.zeros(Rc, dtype=i64, device=dev)
+    if late is not None:
+        cur.masked_fill_(late, mp)             # past its list: never ready
     while True:
         live, rsel = stage("ready", ready_rays, portals, cur, tmax, bpos,
                            any_hit=any_hit)
@@ -1159,6 +1254,8 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
             break
         if diag["rounds"] == max_rounds:
             diag["pending"] = True
+            late = _spread(None if late is None else late.clone(), Rc,
+                           rsel, True)
             break
         validk, pk, pr, ptid, prays = stage(
             "round_pairs", round_pairs, portals, cur, tmax, live, rays_c,
@@ -1168,14 +1265,59 @@ def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
                              stack_depth=stack_depth)
         diag["rounds"] += 1
         diag["pairs"] += ptid.numel()
+        deep = None
         if ptid.numel():
             diag["stack_hwm"] = max(diag["stack_hwm"], int(out_i[2].max()))
-            diag["stack_ovf"] |= bool(out_i[3].any())
+            if bool(out_i[3].any()):
+                diag["stack_ovf"] = True
+                deep = torch.zeros(Rc, dtype=torch.int32, device=dev)
+                deep = deep.index_add_(0, rsel[pr],
+                                       (out_i[3] != 0).to(torch.int32)) > 0
         stage("merge_round", merge_round, (bt, bu, bv, bpos), tmax, cur,
               rsel, validk, pk, pr, out_f, out_i, k=k, any_hit=any_hit)
+        if deep is not None:
+            late = deep if late is None else late | deep
+            cur.masked_fill_(deep, mp)
+    return (bt, bu, bv, bpos), late
 
-    out_t[sel], out_u[sel], out_v[sel], out_pos[sel] = bt, bu, bv, bpos
-    return out_t, out_u, out_v, out_pos, portals.cnt, diag
+
+def _spread(mask, n: int, idx, values):
+    """`mask` (a bool [n] tensor, or None for none) with `values` (bool,
+    one per index, or one for all) or-ed in at the distinct indices
+    `idx`, without a host read."""
+    if mask is None:
+        mask = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    mask[idx] = mask[idx] | values
+    return mask
+
+
+def _joined(groups: list):
+    """(portals, rays_c, dead) of several `_prepare` results (portals,
+    rays_c, late) as one: the columns of each in turn, each list in the
+    first rows of one [MP, C] pair, MP the longest, padded with -1 /
+    +inf; `dead` [C] bool marks each result's `late` columns, whose rays
+    a later result holds. One copy of each list, no host read."""
+    mp = max(p.tid.shape[0] for p, _, _ in groups)
+    C = sum(p.tid.shape[1] for p, _, _ in groups)
+    dev = groups[0][1].device
+    tid = torch.empty((mp, C), dtype=torch.int64, device=dev)
+    tent = torch.empty((mp, C), dtype=torch.float32, device=dev)
+    dead = []
+    off = 0
+    for p, _, late in groups:
+        m, n = p.tid.shape
+        tid[:m, off:off + n] = p.tid
+        tent[:m, off:off + n] = p.tent
+        tid[m:, off:off + n] = -1
+        tent[m:, off:off + n] = float("inf")
+        dead.append(torch.zeros(n, dtype=torch.bool, device=dev)
+                    if late is None else late)
+        off += n
+    portals = groups[0][0]._replace(
+        sel=torch.cat([p.sel for p, _, _ in groups]), tid=tid, tent=tent,
+        sup=None)
+    return (portals, torch.cat([r for _, r, _ in groups], 1),
+            torch.cat(dead))
 
 
 def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
@@ -1188,7 +1330,8 @@ def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
     under "caps"), with each stage run through `stage`, expanding `k`
     portals a ready ray and round (default `portals_per_round(tl)`;
     the hits do not depend on it). Returns what `_render` returns; an
-    overflow is reported in the diag, not raised."""
+    overflow is reported in the diag (the rays past a cap under
+    "overflow"), not raised."""
     return _render(
         tl, packed, any_hit=any_hit, robust=robust,
         top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
@@ -1225,12 +1368,18 @@ def wide_treelet_intersect_tris(
     two-level scenes, mps (supers per ray) and max_new (treelet portals
     per (ray, super) pair) from `wide_treelet_caps`; phase A2's stack is
     sup_depth + 1. Every capacity has an exact overflow flag;
-    with `auto_caps` an overflowed run is discarded and re-run with the
-    named cap doubled (max_portals jumps to the reported need),
-    otherwise it raises. Results of an overflowed run are never
-    returned.
+    with `auto_caps` the rays past a cap, and only those, are rendered
+    again, packed apart, at caps raised for them (`_raised_caps`), at
+    most 8 attempts in all: rays past a phase-A or A2 cap get their
+    lists anew, and one round loop then traces every ray's list; rays
+    past B1's stack or the round cap are rendered once more. Without
+    `auto_caps` an overflow raises. Results of a ray past a cap are
+    never returned, and every hit equals, bit for bit, that of one
+    attempt at caps nothing overflows.
     `return_diag`: also return a dict of rounds, pairs, stack
-    high-water marks and the caps used."""
+    high-water marks (over every attempt), the attempts, the re-run
+    rays and the last attempt's caps, at which one attempt fits every
+    ray."""
     return _intersect(tl, rays, prim_ids, collect_portals, traverse_pairs,
                       any_hit=any_hit, robust=robust, top_stack=top_stack,
                       stack_depth=stack_depth, max_portals=max_portals,
@@ -1254,7 +1403,10 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     `portals_per_round(tl)`). While a torch profiler records, the call
     is the span bvh.render and each attempt at some caps
     bvh.render.attempt, and every attempt adds its rounds, pairs and A2
-    rounds to the `core.trace` counters wide_treelet.*."""
+    rounds to the `core.trace` counters wide_treelet.*: wide_treelet.rays
+    counts the call's rays and wide_treelet.rerun_rays those of every
+    attempt after the first, whose selection, packing and scatter back
+    are the span bvh.render.rerun."""
     if k is None:
         k = portals_per_round(tl)
     auto = wide_treelet_caps(tl, k)
@@ -1271,42 +1423,80 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
         sup_stack=tl.sup_depth + 1,
     )
     packed = pack_rays(rays)
+    R = packed.shape[1]
     trace.count("wide_treelet.calls", 1)
+    trace.count("wide_treelet.rays", R)
+    todo = None     # the rays of a re-run attempt (None: every ray)
+    groups = []     # lists that fit their caps, waiting for the rounds
+    out = None      # every ray's t, u, v, pos and phase-A count
+    total = {}
     for attempt in range(8):
         with trace.span("bvh.render.attempt"):
-            bt, bu, bv, pos, cnt, diag = render_at_caps(
-                tl, packed, caps, any_hit=any_hit, robust=robust,
-                collect=collect, traverse=traverse,
-                collect_super=collect_super, k=k)
+            if todo is None:
+                sub = packed
+            else:
+                with trace.span("bvh.render.rerun"):
+                    sub = packed[:, todo]
+            portals, rays_c, late, diag = _prepare(
+                tl, sub, robust=robust, top_stack=caps["top_stack"],
+                max_portals=caps["max_portals"], mps=caps["mps"],
+                max_new=caps["max_new"], sup_stack=caps["sup_stack"],
+                collect=collect, collect_super=collect_super,
+                stage=run_stage)
+            over = diag.pop("overflow")
+            if out is None:
+                out = _no_hits(R, packed.device) + [portals.cnt]
+            else:
+                with trace.span("bvh.render.rerun"):
+                    out[4][todo] = portals.cnt
+            if late is not None:     # past a cap: left to a re-run
+                over = _spread(over, sub.shape[1], portals.sel, late)
+            if todo is not None:
+                portals = portals._replace(sel=todo[portals.sel])
+            groups.append((portals, rays_c, late))
+            if over is None:
+                # every ray has its list: one round loop over them all
+                dead = None
+                if len(groups) > 1:
+                    with trace.span("bvh.render.rerun"):
+                        portals, rays_c, dead = _joined(groups)
+                groups = []
+                best, late = _pair_rounds(
+                    tl, portals, rays_c, dead, diag, any_hit=any_hit,
+                    robust=robust, stack_depth=caps["stack_depth"],
+                    max_rounds=caps["max_rounds"], k=k, traverse=traverse,
+                    stage=run_stage)
+                sel = portals.sel
+                if dead is not None:     # a ray's live column only
+                    with trace.span("bvh.render.rerun"):
+                        live = torch.nonzero(~late).squeeze(1)
+                        sel, best = sel[live], [b[live] for b in best]
+                        late = late & ~dead
+                for o, b in zip(out, best):
+                    o[sel] = b
         # an overflowed attempt is work done too: every attempt counts
         trace.count("wide_treelet.attempts", 1)
         trace.count("wide_treelet.rounds", diag["rounds"])
         trace.count("wide_treelet.pairs", diag["pairs"])
         trace.count("wide_treelet.a2_rounds", diag.get("a2_rounds", 0))
-        bumps = {}
-        if diag["max_cnt"] > caps["max_portals"]:
-            bumps["max_portals"] = _up_pow2(diag["max_cnt"])
-        if diag["top_ovf"]:
-            bumps["top_stack"] = 2 * caps["top_stack"]
-        if diag["stack_ovf"]:
-            bumps["stack_depth"] = 2 * caps["stack_depth"]
-        if diag["pending"]:
-            bumps["max_rounds"] = 2 * caps["max_rounds"]
-        if diag["a2_bits"] & 1:
-            bumps["mps"] = 2 * caps["mps"]
-        if diag["a2_bits"] & 2:
-            bumps["max_new"] = 2 * caps["max_new"]
-        if diag["a2_bits"] & 4:
-            bumps["max_portals"] = max(bumps.get("max_portals", 0),
-                                       2 * caps["max_portals"])
-        if diag.get("sup_ovf"):
-            bumps["sup_stack"] = 2 * caps["sup_stack"]
+        _tally(total, diag)
+        bumps = _raised_caps(diag, caps)
         if not bumps:
             break
         if not auto_caps or attempt == 7:
             raise ValueError(f"wide-treelet capacity overflow: {bumps} "
                              f"needed with caps {caps}")
         caps.update(bumps)
+        with trace.span("bvh.render.rerun"):
+            if over is None:         # past B1's stack or max_rounds
+                todo = portals.sel[late]
+            else:
+                local = torch.nonzero(over).squeeze(1)
+                todo = local if todo is None else todo[local]
+        total["rerun_rays"] += todo.numel()
+    trace.count("wide_treelet.rerun_rays", total["rerun_rays"])
+    bt, bu, bv, pos, cnt = out
+    diag = total
 
     missed = pos < 0
     prim_pos = torch.where(missed, INVALID_PRIM_ID, pos)
@@ -1323,6 +1513,65 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     if return_diag:
         return hit, dict(diag, caps=caps)
     return hit
+
+
+def _no_hits(R: int, device) -> list:
+    """[t, u, v, pos] of R rays that hit nothing."""
+    return [torch.full((R,), float("inf"), dtype=torch.float32,
+                       device=device),
+            torch.zeros(R, dtype=torch.float32, device=device),
+            torch.zeros(R, dtype=torch.float32, device=device),
+            torch.full((R,), -1, dtype=torch.int64, device=device)]
+
+
+# an attempt's diag entries that add up over a call's attempts, and those
+# that keep their largest value; the flags are the last attempt's
+_SUMMED = ("rounds", "pairs", "a2_rounds", "a2_pairs")
+_PEAKS = ("max_cnt", "top_hwm", "stack_hwm", "max_sup", "max_rec", "max_len")
+
+
+def _tally(total: dict, diag: dict) -> None:
+    """Fold one attempt's diag into the call's `total`, in place."""
+    if not total:
+        total.update(diag, attempts=0, rerun_rays=0)
+    else:
+        for name in _SUMMED:
+            if name in diag:
+                total[name] += diag[name]
+        for name in _PEAKS:
+            total[name] = max(total[name], diag[name])
+        total.update((name, v) for name, v in diag.items()
+                     if name not in _SUMMED + _PEAKS)
+    total["attempts"] += 1
+
+
+def _raised_caps(diag: dict, caps: dict) -> dict:
+    """The caps an attempt's overflow asks to raise, each only upward:
+    to the need that phase A (its portal count) and B4 (a pair's record
+    count) and the split (a ray's super count) report exactly, rounded
+    up to a power of two, else doubled (a merged list counts only up to
+    its round, so max_portals takes the larger of both). {} where
+    nothing overflowed."""
+    bumps = {}
+    if diag["max_cnt"] > caps["max_portals"]:
+        bumps["max_portals"] = _up_pow2(diag["max_cnt"])
+    if diag["top_ovf"]:
+        bumps["top_stack"] = 2 * caps["top_stack"]
+    if diag["stack_ovf"]:
+        bumps["stack_depth"] = 2 * caps["stack_depth"]
+    if diag["pending"]:
+        bumps["max_rounds"] = 2 * caps["max_rounds"]
+    if diag["a2_bits"] & 1:
+        bumps["mps"] = _up_pow2(diag["max_sup"])
+    if diag["a2_bits"] & 2:
+        bumps["max_new"] = _up_pow2(diag["max_rec"])
+    if diag["a2_bits"] & 4:
+        bumps["max_portals"] = max(bumps.get("max_portals", 0),
+                                   2 * caps["max_portals"],
+                                   _up_pow2(diag["max_len"]))
+    if diag.get("sup_ovf"):
+        bumps["sup_stack"] = 2 * caps["sup_stack"]
+    return bumps
 
 
 # ------------------------------------------- the render as one program

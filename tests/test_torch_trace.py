@@ -144,7 +144,9 @@ def test_on_spans_nest_and_counters_equal_the_diag(scene, any_hit):
                      "wide_treelet.rounds": rounds,
                      "wide_treelet.pairs": diag["pairs"],
                      "wide_treelet.a2_rounds": 0,
-                     "wide_treelet.portal_sorts": 1}
+                     "wide_treelet.portal_sorts": 1,
+                     "wide_treelet.rays": scene.rays.tmin.shape[0],
+                     "wide_treelet.rerun_rays": 0}
     outer = named(spans, "bvh.render")
     attempts = named(spans, "bvh.render.attempt")
     assert len(outer) == 1 and len(attempts) == 1
@@ -156,23 +158,31 @@ def test_on_spans_nest_and_counters_equal_the_diag(scene, any_hit):
 
 def test_forced_rerun_counts_every_attempt(scene, monkeypatch):
     want, _ = render(scene)
-    seen = []
-    real = wt.render_at_caps
+    rays, rounds = [], []
+    prepare, pair_rounds = wt._prepare, wt._pair_rounds
 
-    def counted(*args, **kwargs):
-        out = real(*args, **kwargs)
-        seen.append(out[-1]["rounds"])
+    def counted_prepare(tl, packed, **kwargs):
+        rays.append(packed.shape[1])
+        return prepare(tl, packed, **kwargs)
+
+    def counted_rounds(*args, **kwargs):
+        diag = args[4]
+        before = diag["rounds"]
+        out = pair_rounds(*args, **kwargs)
+        rounds.append(diag["rounds"] - before)
         return out
 
-    monkeypatch.setattr(wt, "render_at_caps", counted)
+    monkeypatch.setattr(wt, "_prepare", counted_prepare)
+    monkeypatch.setattr(wt, "_pair_rounds", counted_rounds)
     (got, diag), spans, delta = traced(
         lambda: render(scene, max_portals=1, auto_caps=True))
-    assert len(seen) >= 2 and diag["caps"]["max_portals"] > 1
+    assert len(rays) >= 2 and diag["caps"]["max_portals"] > 1
     assert delta["wide_treelet.calls"] == 1
     assert delta["wide_treelet.attempts"] - delta["wide_treelet.calls"] == \
-        len(seen) - 1
-    assert delta["wide_treelet.rounds"] == sum(seen)
-    assert len(named(spans, "bvh.render.attempt")) == len(seen)
+        len(rays) - 1
+    assert delta["wide_treelet.rounds"] == sum(rounds) == diag["rounds"]
+    assert delta["wide_treelet.rerun_rays"] == sum(rays[1:])
+    assert len(named(spans, "bvh.render.attempt")) == len(rays)
     for a, b in zip(bits(got), bits(want)):
         assert torch.equal(a, b)
 
