@@ -166,6 +166,11 @@ _SIGNATURES = {
     # on the device, or null), stream
     "bvh_wide_treelet_traverse": [_VP, _I, _I, _VP, _VP, _I, _I, _I, _I,
                                   _VP, _VP, _VP, _VP, _VP],
+    # table_cols, T, P, tid [MP, Rc] i64, tent, MP, rays, Rc, late (or
+    # null), k (the window), any_hit, robust, stack_depth, out_f, out_pos,
+    # out_ovf, stats (4 ints, zeroed by the call), stream
+    "bvh_wide_treelet_walk": [_VP, _I, _I, _VP, _VP, _I, _VP, _I, _VP, _I,
+                              _I, _I, _I, _VP, _VP, _VP, _VP, _VP],
     # table_cols, T, P, tid, rays, L, variant, stack_depth, out_f, out_i,
     # next, stream
     "bvh_wide_treelet_ablate": [_VP, _I, _I, _VP, _VP, _I, _I, _I,
@@ -356,6 +361,7 @@ class Kernel:
 
 COLLECT = Kernel("collect_portals", "bvh_collect_portals")
 WIDE_TREELET = Kernel("traverse_pairs", "bvh_wide_treelet_traverse")
+WALK = Kernel("walk_portals", "bvh_wide_treelet_walk")
 GROUP_BUILD = Kernel("group_build", "bvh_group_build")
 COLLECT_SUPER = Kernel("collect_super_pairs", "bvh_collect_super_pairs")
 BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
@@ -366,7 +372,7 @@ PORTAL_MERGE = Kernel("portal_merge", "bvh_portal_merge")
 WIDE_TREELET_ABLATE = Kernel("traverse_pairs_ablate", "bvh_wide_treelet_ablate")
 WIDE_STEP_PROBE = Kernel("wide_step_probe", "bvh_wide_step_probe")
 COLUMN_FETCH = Kernel("column_fetch", "bvh_column_fetch")
-KERNELS = (COLLECT, WIDE_TREELET, GROUP_BUILD, COLLECT_SUPER,
+KERNELS = (COLLECT, WIDE_TREELET, WALK, GROUP_BUILD, COLLECT_SUPER,
            BINARY_TRAVERSE, SPHERE_TRAVERSE, PORTAL_SORT, PORTAL_MERGE,
            WIDE_TREELET_ABLATE,
            WIDE_STEP_PROBE, COLUMN_FETCH)

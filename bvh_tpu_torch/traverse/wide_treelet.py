@@ -22,7 +22,10 @@ each that kernel B1 reads. A render then runs in two phases:
   ready into (ray, treelet) pairs, which kernel B1
   (`traverse_pairs`, csrc/wide_treelet.cu) traverses 8-wide. Results
   merge into each ray's best hit by first-j strict-min, which keeps the
-  reference's near-to-far rule (bvh.h:137-149).
+  reference's near-to-far rule (bvh.h:137-149). On the card the entry
+  point hands the rounds to one kernel launch instead, the portal walk
+  (`walk_portals`): each ray walks its own sorted list with B1's steps,
+  in the rounds' windows of k portals, so its hits are the rounds'.
 
 The entry point's render loop (`_render`) ports what the reference's
 `_render_jit` computes, not its TPU schedule: rays are independent, so
@@ -769,20 +772,28 @@ def check_pair_inputs(name, table_cols, tid, rays, stack_depth: int) -> None:
     (`WideTreelets.table_cols`, not the [T, 64, P] `table`), [L] int32
     tid and [8, L] f32 rays on one device, and a stack within the
     compiled capacity."""
-    if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
-        raise ValueError(f"{name}: stack depth {stack_depth} "
-                         f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
+    _check_table(name, table_cols, rays.device, stack_depth)
     L = tid.shape[0]
-    if (table_cols.dtype != torch.float32 or table_cols.dim() != 3
-            or table_cols.shape[2] != ROWS or not table_cols.is_contiguous()
-            or table_cols.data_ptr() % 16 or table_cols.device != rays.device):
-        raise ValueError(f"{name}: the table must be the column layout, a "
-                         f"contiguous 16-byte aligned [T, P, {ROWS}] float32 "
-                         f"tensor on {rays.device} (WideTreelets.table_cols)")
     if (tid.dtype != torch.int32 or tid.dim() != 1 or not tid.is_contiguous()
             or tid.device != rays.device):
         raise ValueError(f"{name}: tid must be a contiguous [L] "
                          f"int32 tensor on {rays.device}")
+    _check_rays(name, rays, L)
+
+
+def _check_table(name, table_cols, device, stack_depth: int) -> None:
+    if not 1 <= stack_depth <= kernels.WIDE_STACK_MAX:
+        raise ValueError(f"{name}: stack depth {stack_depth} "
+                         f"exceeds the kernel's {kernels.WIDE_STACK_MAX}")
+    if (table_cols.dtype != torch.float32 or table_cols.dim() != 3
+            or table_cols.shape[2] != ROWS or not table_cols.is_contiguous()
+            or table_cols.data_ptr() % 16 or table_cols.device != device):
+        raise ValueError(f"{name}: the table must be the column layout, a "
+                         f"contiguous 16-byte aligned [T, P, {ROWS}] float32 "
+                         f"tensor on {device} (WideTreelets.table_cols)")
+
+
+def _check_rays(name, rays, L: int) -> None:
     if (rays.dtype != torch.float32 or tuple(rays.shape) != (8, L)
             or not rays.is_contiguous()):
         raise ValueError(f"{name}: rays must be a contiguous [8, L] "
@@ -865,7 +876,10 @@ def wide_treelet_perf(tl: WideTreelets) -> dict:
 def portals_per_round(tl: WideTreelets) -> int:
     """Portals expanded per ready ray and round (`wide_treelet_perf`):
     16 for scenes of 2,048 treelets or more, else 4. It sets the work
-    per round only; the results do not depend on it."""
+    per round and, for closest hit, how soon tmax falls; since the fast
+    slab test culls a box whose rounded entry lies just past tmax, a
+    rare ray's hit can depend on it (one ray of 16 sets at 10M
+    interior). Any-hit results do not depend on it."""
     return wide_treelet_perf(tl)["portals_per_round"]
 
 
@@ -1281,6 +1295,108 @@ def _pair_rounds(tl: WideTreelets, portals: Portals, rays_c, late, diag, *,
     return (bt, bu, bv, bpos), late
 
 
+def walk_portals_plain(tl: WideTreelets, portals: Portals, rays_c, late,
+                       diag, *, any_hit, robust, stack_depth, k: int):
+    """The portal walk's plain version: `_pair_rounds` over
+    `traverse_pairs_plain` at k (any-hit: at k = 1, since the walk stops
+    a ray at its first hit); diag as `walk_portals` updates it (one
+    walk, its (ray, treelet) pairs, stack high-water mark and
+    overflow)."""
+    rounds = dict(rounds=0, pairs=0, stack_hwm=0, stack_ovf=False,
+                  pending=False)
+    best, late = _pair_rounds(
+        tl, portals, rays_c, late, rounds, any_hit=any_hit, robust=robust,
+        stack_depth=stack_depth, max_rounds=portals.tid.shape[0] + 1,
+        k=1 if any_hit else k, traverse=traverse_pairs_plain,
+        stage=run_stage)
+    _count_walk(diag, rounds["pairs"], rounds["stack_hwm"],
+                rounds["stack_ovf"])
+    return best, late
+
+
+def _count_walk(diag, walks: int, hwm: int, ovf: bool) -> None:
+    diag["rounds"] += 1
+    diag["pairs"] += walks
+    diag["stack_hwm"] = max(diag["stack_hwm"], hwm)
+    diag["stack_ovf"] = diag["stack_ovf"] or ovf
+
+
+def check_walk_inputs(name, table_cols, tid, tent, rays_c, late,
+                      stack_depth: int) -> None:
+    """Raise ValueError unless the portal walk's inputs are what its
+    kernel takes: B1's column table and stack (`check_pair_inputs`),
+    contiguous [MP, Rc] int64 tid and float32 tent, [8, Rc] rays and
+    None or a contiguous [Rc] bool `late`, on one device."""
+    _check_table(name, table_cols, rays_c.device, stack_depth)
+    if (tid.dtype != torch.int64 or tid.dim() != 2 or not tid.is_contiguous()
+            or tid.device != rays_c.device):
+        raise ValueError(f"{name}: tid must be a contiguous [MP, Rc] int64 "
+                         f"tensor on {rays_c.device}")
+    if (tent.dtype != torch.float32 or tent.shape != tid.shape
+            or not tent.is_contiguous() or tent.device != rays_c.device):
+        raise ValueError(f"{name}: tent must be a contiguous [MP, Rc] "
+                         f"float32 tensor on {rays_c.device}")
+    if late is not None and (late.dtype != torch.bool
+                             or tuple(late.shape) != (tid.shape[1],)
+                             or not late.is_contiguous()
+                             or late.device != rays_c.device):
+        raise ValueError(f"{name}: late must be None or a contiguous [Rc] "
+                         f"bool tensor on {rays_c.device}")
+    _check_rays(name, rays_c, tid.shape[1])
+
+
+def walk_portals(tl: WideTreelets, portals: Portals, rays_c, late, diag, *,
+                 any_hit, robust, stack_depth, k: int):
+    """`_pair_rounds`' rounds of k portals as one walk of every ray's
+    list: each ray walks its sorted portals portals.tid, .tent [MP, Rc]
+    in entry order, in windows of k portals, each treelet at the
+    window's tmax, which falls to the ray's best t after each window,
+    until the ray is no longer ready (any-hit: also at its first hit).
+    On CUDA tensors one launch of the portal walk kernel
+    (csrc/wide_treelet.cu) and one host read of its stats row; on CPU
+    tensors its plain version (`walk_portals_plain`). For other inputs
+    it raises.
+
+    Takes and returns what `_pair_rounds` does: the best hits (t, u, v,
+    pos), each [Rc], and a copy of `late` with the columns past B1's
+    stack set too (None if none was and none is). Closest hit: equal
+    bit for bit to `_pair_rounds` at the same k, where no column
+    overflows B1's stack (one that does is walked no further). Any-hit:
+    equal to `_pair_rounds` at k = 1, and its hits to the rounds' at any
+    k. diag gets one round (the walk), its (ray, treelet) pairs, the
+    stack high-water mark over them and the stack overflow. A ray walks
+    at most MP portals, so no round cap binds the walk and it never
+    sets diag's "pending"."""
+    if k < 1:
+        raise ValueError(f"walk_portals: k must be at least 1, got {k}")
+    if rays_c.device.type == "cpu":
+        return walk_portals_plain(tl, portals, rays_c, late, diag,
+                                  any_hit=any_hit, robust=robust,
+                                  stack_depth=stack_depth, k=k)
+    if rays_c.device.type != "cuda":
+        raise ValueError(f"walk_portals: unsupported device {rays_c.device}")
+    tid, tent, cols = portals.tid, portals.tent, tl.table_cols
+    check_walk_inputs("walk_portals", cols, tid, tent, rays_c, late,
+                      stack_depth)
+    MP, Rc = tid.shape
+    dev = rays_c.device
+    out_f = torch.empty((3, Rc), dtype=torch.float32, device=dev)
+    pos = torch.empty(Rc, dtype=torch.int64, device=dev)
+    deep = torch.empty(Rc, dtype=torch.bool, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    kernels.WALK.launch(
+        cols.data_ptr(), cols.shape[0], cols.shape[1], tid.data_ptr(),
+        tent.data_ptr(), MP, rays_c.data_ptr(), Rc,
+        None if late is None else late.data_ptr(), k, int(any_hit),
+        int(robust), stack_depth, out_f.data_ptr(), pos.data_ptr(),
+        deep.data_ptr(), stats.data_ptr())
+    _, hwm, ovf, walks = stats.tolist()
+    _count_walk(diag, walks, hwm, bool(ovf))
+    if ovf:
+        late = deep if late is None else late | deep
+    return (out_f[0], out_f[1], out_f[2], pos), late
+
+
 def _spread(mask, n: int, idx, values):
     """`mask` (a bool [n] tensor, or None for none) with `values` (bool,
     one per index, or one for all) or-ed in at the distinct indices
@@ -1328,8 +1444,9 @@ def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
     """`_render` of [8, R] packed rays at the capacities `caps` (the dict
     that `wide_treelet_intersect_tris(..., return_diag=True)` reports
     under "caps"), with each stage run through `stage`, expanding `k`
-    portals a ready ray and round (default `portals_per_round(tl)`;
-    the hits do not depend on it). Returns what `_render` returns; an
+    portals a ready ray and round (default `portals_per_round(tl)`, at
+    which its hits equal the entry point's; see `portals_per_round`).
+    Returns what `_render` returns; an
     overflow is reported in the diag (the rays past a cap under
     "overflow"), not raised."""
     return _render(
@@ -1371,8 +1488,9 @@ def wide_treelet_intersect_tris(
     with `auto_caps` the rays past a cap, and only those, are rendered
     again, packed apart, at caps raised for them (`_raised_caps`), at
     most 8 attempts in all: rays past a phase-A or A2 cap get their
-    lists anew, and one round loop then traces every ray's list; rays
-    past B1's stack or the round cap are rendered once more. Without
+    lists anew, and one round loop (on the card one portal walk,
+    `walk_portals`) then traces every ray's list; rays past B1's stack
+    or the round cap are rendered once more. Without
     `auto_caps` an overflow raises. Results of a ray past a cap are
     never returned, and every hit equals, bit for bit, that of one
     attempt at caps nothing overflows.
@@ -1400,13 +1518,31 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     render without the kernels on any device. `traverse` is given the
     column tables `tl.table_cols`, `collect_super` the super rows
     `tl.sup_cols`. `k`: portals a ready ray and round (default
-    `portals_per_round(tl)`). While a torch profiler records, the call
-    is the span bvh.render and each attempt at some caps
-    bvh.render.attempt, and every attempt adds its rounds, pairs and A2
-    rounds to the `core.trace` counters wide_treelet.*: wide_treelet.rays
-    counts the call's rays and wide_treelet.rerun_rays those of every
-    attempt after the first, whose selection, packing and scatter back
-    are the span bvh.render.rerun."""
+    `portals_per_round(tl)`).
+
+    Where the rays are CUDA tensors, `traverse` is `traverse_pairs` and
+    no `k` is given, the lists are traced by `walk_portals` at k, one
+    launch of the portal walk kernel, run as the stage "walk";
+    otherwise by `_pair_rounds`' rounds of k portals, each stage run
+    through `run_stage` (ready, round_pairs, b1, merge_round), as
+    `wide_treelet_render_chain` needs them to size its fixed schedule.
+    The hits are the same either way.
+    The rounds and pairs that an attempt reports are then the walk's:
+    one round a walk launch, whose pairs are the (ray, treelet) walks it
+    made, so `Hit.stats`' round field counts one a call plus one for
+    each re-run after B1's stack overflowed.
+
+    While a torch profiler records, the call is the span bvh.render and
+    each attempt at some caps bvh.render.attempt, and every attempt adds
+    its rounds, pairs and A2 rounds to the `core.trace` counters
+    wide_treelet.*: wide_treelet.rays counts the call's rays and
+    wide_treelet.rerun_rays those of every attempt after the first,
+    whose selection, packing and scatter back are the span
+    bvh.render.rerun."""
+    # on the card the kernels' render walks each ray's list in one launch,
+    # unless the caller asks for rounds of k portals
+    walk = (rays.org.device.type == "cuda" and traverse is traverse_pairs
+            and k is None)
     if k is None:
         k = portals_per_round(tl)
     auto = wide_treelet_caps(tl, k)
@@ -1461,11 +1597,17 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                     with trace.span("bvh.render.rerun"):
                         portals, rays_c, dead = _joined(groups)
                 groups = []
-                best, late = _pair_rounds(
-                    tl, portals, rays_c, dead, diag, any_hit=any_hit,
-                    robust=robust, stack_depth=caps["stack_depth"],
-                    max_rounds=caps["max_rounds"], k=k, traverse=traverse,
-                    stage=run_stage)
+                if walk:
+                    best, late = run_stage(
+                        "walk", walk_portals, tl, portals, rays_c, dead,
+                        diag, any_hit=any_hit, robust=robust,
+                        stack_depth=caps["stack_depth"], k=k)
+                else:
+                    best, late = _pair_rounds(
+                        tl, portals, rays_c, dead, diag, any_hit=any_hit,
+                        robust=robust, stack_depth=caps["stack_depth"],
+                        max_rounds=caps["max_rounds"], k=k,
+                        traverse=traverse, stage=run_stage)
                 sel = portals.sel
                 if dead is not None:     # a ray's live column only
                     with trace.span("bvh.render.rerun"):

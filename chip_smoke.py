@@ -54,7 +54,7 @@ exits non-zero):
 11. (a) the CLI (`cli.benchmark`'s argument parsing, OBJ load and `run`)
    on tests/golden/cornell.obj at 1024x1024 from the reference's test
    camera, -p --robust-traversal, at -q low, med and high: each run
-   launches kernel B5 and neither B1 nor B2; every ray's t, u, v,
+   launches kernel B5 and neither B1, B2 nor the walk; every ray's t, u, v,
    position and counts equal B5's plain version bit for bit; the PPM
    equals, byte for byte, the PPM drawn from the plain version's hits;
    the intersection count is the C++ reference's 1,027,152; B5's time
@@ -74,7 +74,7 @@ exits non-zero):
 13. (c) the CLI's `run` on sponza_class(10,000,000, 0), the
    San-Miguel-class scene, at 1024x1024 and -q high from
    `scene_camera`: the build launches B3, the treelet cut has a super
-   level (S > 0), the render launches B2, B4 and B1; B4 equals its
+   level (S > 0), the render launches B2, B4 and the walk; B4 equals its
    plain version bit for bit on every (ray, super) pair of the first
    A2 round; every 16th ray's t and position equal the plain-version
    driver's; the hit count is the C++ oracle's 77,420 within 4 per
@@ -157,7 +157,7 @@ exits non-zero):
    variant equal to B1), `bench_sanmiguel` on phase 13's tree and
    tables (77,420 hits; the v2 round trip `bvh_equal`, the tables cut
    from the loaded tree and its render equal to the built tree's) and
-   `bench_dims` (its parity gate). B1, B2, B3, B4, B6 and T1 must each
+   `bench_dims` (its parity gate). The walk, B2, B3, B4, B6 and T1 must each
    launch; the results go to chiprun_out/phase19.json and a `{"tools":
    ...}` line before the kernels line;
 20. the last five tools, each through its `run` at full width with the
@@ -174,7 +174,7 @@ exits non-zero):
    (k 4 and 16 and max_prims 2048 beside the default and the entry
    point, every config's hits bit-equal to the default's); then `entry()` on the card (equal
    to its CPU run) and `dryrun_multichip(2)` on gloo ranks that share
-   the card. B1 and B2 must launch in the three render tools; the
+   the card. B2 and the walk must launch in the three render tools; the
    results go to chiprun_out/phase20.json and a `{"tools20": ...}`
    line before the kernels line;
 21. the one-program render on phase 7's 262K tree, primary and shadow
@@ -206,6 +206,15 @@ exits non-zero):
    of each scene (one sort an attempt, one merge an A2 round); results
    in chiprun_out/phase22.json, a `{"portal_sort": ...}` line and the
    kernels line's portal_sort and portal_merge entries.
+
+23. the portal walk (csrc/wide_treelet.cu), which takes over the pair
+   rounds on the card, on the benchmark's 262K box grid with its first
+   interior and first shadow sets: at the scene's k its hits equal the
+   rounds' at that k, and at k = 1 all its outputs the rounds' at k = 1
+   over B1, bit for bit; the device's own time of both, their launches, walks and device
+   operations a call, the bound (rays, hits and treelet tables once) and
+   the plain version on every 16th column; chiprun_out/phase23.json, a
+   `{"walk": ...}` line and the kernels line's walk_portals entry.
 
 The render profilers run inside phases 10 and 13: after phase 10, T2
 (`profile_r3`: the primary render stage by stage, whose stages give the
@@ -622,7 +631,8 @@ def cornell_cli_phase() -> dict:
             f"{res.build_s * 1e3:.3f} ms, render {res.render_s * 1e3:.3f} "
             f"ms (CUDA events)")
         if (res.path != "binary" or launches["binary_traverse"] == 0
-                or launches["collect_portals"] or launches["traverse_pairs"]):
+                or launches["collect_portals"] or launches["traverse_pairs"]
+                or launches["walk_portals"]):
             raise AssertionError(f"the CLI on the Cornell box must run B5 "
                                  f"alone: {res.path}, {launches}")
         out["launches"] += launches["binary_traverse"]
@@ -844,7 +854,7 @@ def two_level_phase() -> dict:
         raise AssertionError("the San-Miguel-class scene must take the "
                              "two-level wide-treelet render")
     for k in ("group_build", "collect_portals", "collect_super_pairs",
-              "traverse_pairs"):
+              "walk_portals"):
         if launches[k] == 0:
             raise AssertionError(f"phase c never launched {k}")
     R = SIDE * SIDE
@@ -1048,7 +1058,7 @@ def last_tools_phase(sc) -> dict:
         for k, v in per_tool.items():
             total[k] = total.get(k, 0) + v
     for name in ("check_oracle", "profile_pure", "sweep_chain"):
-        for k in (kernels.WIDE_TREELET, kernels.COLLECT):
+        for k in (kernels.WALK, kernels.COLLECT):
             if not launches[name].get(k.name):
                 raise AssertionError(f"phase 20: {name} never launched "
                                      f"{k.name}")
@@ -2000,7 +2010,7 @@ def tools_phase(boxes, sc, native_bvh, round1, big_sc, big_tl) -> dict:
     for per_tool in launches.values():
         for k, v in per_tool.items():
             total[k] = total.get(k, 0) + v
-    for k in (kernels.WIDE_TREELET, kernels.COLLECT, kernels.GROUP_BUILD,
+    for k in (kernels.WALK, kernels.COLLECT, kernels.GROUP_BUILD,
               kernels.COLLECT_SUPER, kernels.SPHERE_TRAVERSE,
               kernels.WIDE_TREELET_ABLATE):
         if not total.get(k.name):
@@ -2122,6 +2132,148 @@ def portal_sort_phase(tree, flat, tris, big_tl, big_rays) -> dict:
         json.dump(res, f, indent=1)
     return res
 
+
+def walk_phase() -> dict:
+    """Phase 23: the portal walk (csrc/wide_treelet.cu, `walk_portals`)
+    against the pair rounds it replaces on the card (`_pair_rounds` at
+    the scene's k over B1), both at that k, on the benchmark's 262K box grid
+    (`raybench/configs/boxgrid_262k.json`, built as its harness builds
+    it) with its first interior set (1,048,576 closest-hit rays) and its
+    first shadow set (1,048,576 any-hit rays), each traced from the lists
+    of phase A and the ordering at the caps the entry point settles on.
+    The walk's hits equal the rounds' at that k bit for bit (closest
+    hit: its pairs and stack high-water mark too; any-hit: those of the
+    rounds at k = 1), and at k = 1 all its outputs (hits, stack
+    high-water mark, overflow) equal the rounds' at k = 1 over B1. Timed as the device's own time (median of 21, queued
+    behind a head start; the rounds read the host 4 times a round, so
+    their time holds those gaps), with the launches and (ray, treelet)
+    walks of a call, the device operations of a call (a profiler), and
+    the bound: the rays read once (32 bytes), the hits written once (16)
+    and the treelet tables read once, as raybench/counts.py counts a
+    frame. The plain version (`walk_portals_plain`) runs once on every
+    16th column, equal bit for bit to the kernel there. Results in
+    chiprun_out/phase23.json and a `{"walk": ...}` line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from raybench import counts, harness, rays as rb_rays, scenes
+
+    t_phase = time.perf_counter()
+    config = harness.load_json(
+        os.path.join(HERE, "raybench", "configs", "boxgrid_262k.json"))
+    tris = scenes.sponza_class(config["n_tris"], config["scene_seed"], DEV)
+    _, tl = harness.scene_build(tris, config)
+    k = wt.portals_per_round(tl)
+    res = dict(k=k, treelets=int(tl.table_cols.shape[0]),
+               table_bytes=nbytes(tl.table_cols))
+
+    def device_ops(fn) -> int:
+        """The device operations of one call of fn, from the second of
+        two profiled calls (a first profile in a process can miss them)."""
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        return sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+
+    for traffic in ("interior", "shadow"):
+        spec = harness.load_json(
+            os.path.join(HERE, "raybench", "traffic", f"{traffic}.json"))
+        any_hit = bool(spec["any_hit"])
+        ray = Ray(*rb_rays.ray_sets(spec["rays"], tris, 0)[0])
+        caps = wt.wide_treelet_intersect_tris(tl, ray, any_hit=any_hit,
+                                              return_diag=True)[1]["caps"]
+        portals, rays_c, late, _ = wt._prepare(
+            tl, wt.pack_rays(ray), robust=False, top_stack=caps["top_stack"],
+            max_portals=caps["max_portals"], mps=caps["mps"],
+            max_new=caps["max_new"], sup_stack=caps["sup_stack"],
+            collect=wt.collect_portals, collect_super=wt.collect_super_pairs,
+            stage=wt.run_stage)
+        if late is not None:
+            raise AssertionError(f"phase 23, {traffic}: a list is past a cap")
+        kw = dict(any_hit=any_hit, robust=False,
+                  stack_depth=caps["stack_depth"])
+        diags = {}
+
+        def walk(kk=k, p=portals, r=rays_c):
+            diags[f"walk{kk}"] = d = dict(rounds=0, pairs=0, stack_hwm=0,
+                                          stack_ovf=False, pending=False)
+            return wt.walk_portals(tl, p, r, None, d, k=kk, **kw)[0]
+
+        def rounds(kk=k, traverse=wt.traverse_pairs, p=portals, r=rays_c):
+            diags[kk] = d = dict(rounds=0, pairs=0, stack_hwm=0,
+                                 stack_ovf=False, pending=False)
+            return wt._pair_rounds(tl, p, r, None, d, max_rounds=1 << 20,
+                                   k=kk, traverse=traverse,
+                                   stage=wt.run_stage, **kw)[0]
+
+        ref = rounds()
+        got = walk()
+        at_one = rounds(1)
+        # closest hit: the walk at k has the rounds' pairs at k; any-hit
+        # stops at its first hit, as the rounds at k = 1 do
+        like = diags[1] if any_hit else diags[k]
+        hits_equal = same(got, ref) and all(
+            diags[f"walk{k}"][x] == like[x] for x in ("pairs", "stack_hwm"))
+        one = walk(1)
+        equal_k1 = (same(one, at_one) and diags["walk1"]["stack_hwm"]
+                    == diags[1]["stack_hwm"]
+                    and diags["walk1"]["pairs"] == diags[1]["pairs"]
+                    and not diags["walk1"]["stack_ovf"])
+        kernels.reset_launch_counts()
+        walk()
+        walk_launches = launch_counts()
+        rounds()
+        loop_launches = launch_counts()
+        loop_launches[kernels.WALK.name] = 0
+        ms = device_ms(walk, ref)
+        loop_ms = device_ms(rounds, ref)
+        ops = dict(walk=device_ops(walk), rounds=device_ops(rounds))
+        # the plain version on every 16th column
+        sub = slice(None, None, SUBSET)
+        p16 = portals._replace(sel=portals.sel[sub],
+                               tid=portals.tid[:, sub].contiguous(),
+                               tent=portals.tent[:, sub].contiguous())
+        r16 = rays_c[:, sub].contiguous()
+        plain_ms, plain = events_ms(lambda: wt.walk_portals_plain(
+            tl, p16, r16, None, dict(rounds=0, pairs=0, stack_hwm=0,
+                                     stack_ovf=False, pending=False),
+            k=k, **kw)[0])
+        plain_equal = same(plain, tuple(x[sub] for x in got))
+        Rc = rays_c.shape[1]
+        b = bound(Rc * (counts.RAY_BYTES + counts.HIT_BYTES)
+                  + res["table_bytes"], 0)
+        res[traffic] = dict(
+            rays=int(ray.tmin.numel()), rays_with_portals=Rc,
+            max_portals=int(portals.tid.shape[0]), caps=caps,
+            hits=int(torch.isfinite(got[0]).sum()),
+            hits_equal_rounds=hits_equal, equal_rounds_at_1=equal_k1,
+            plain_equal=plain_equal, ms=ms, rounds_ms=loop_ms,
+            plain_ms_every_16th=plain_ms, bound_ms=b[0], bound_by=b[1],
+            walk=dict(launches=walk_launches, walks=diags[f"walk{k}"]["pairs"],
+                      stack_hwm=diags[f"walk{k}"]["stack_hwm"],
+                      device_ops=ops["walk"]),
+            rounds=dict(launches=loop_launches, rounds=diags[k]["rounds"],
+                        pairs=diags[k]["pairs"],
+                        stack_hwm=diags[k]["stack_hwm"],
+                        device_ops=ops["rounds"]),
+            rounds_at_1=dict(rounds=diags[1]["rounds"],
+                             pairs=diags[1]["pairs"]))
+        log(f"# phase 23, {traffic}: {res[traffic]}")
+        if not (hits_equal and equal_k1 and plain_equal
+                and walk_launches == {kernels.WALK.name: 1}):
+            raise AssertionError(f"phase 23, {traffic}: the walk differs "
+                                 "from the rounds or its plain version")
+    res.update(seconds=time.perf_counter() - t_phase, card=card_line(),
+               ptxas=kernels.ptxas_figures("walk_kernel"))
+    with open(os.path.join(OUT_DIR, "phase23.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
 
 def main_path_launches(tl, rays) -> dict:
     """The entry point's render of `rays` (closest hit, default caps),
@@ -2602,8 +2754,9 @@ def run() -> dict:
                                                  return_diag=True)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    render_kernels = (kernels.COLLECT, kernels.WIDE_TREELET)
-    launches = {k.name: k.launches for k in render_kernels}
+    render_kernels = (kernels.COLLECT, kernels.WALK)
+    launches = {k.name: k.launches for k in (*render_kernels,
+                                             kernels.WIDE_TREELET)}
     n_hits = int(torch.isfinite(hit.t).sum())
     n_shadow = int(torch.isfinite(shit.t).sum())
     log(f"# primary render on the port's tree: {n_hits} hits of {R} rays "
@@ -2612,9 +2765,10 @@ def run() -> dict:
     log(f"# shadow render: {n_shadow} occluded of {R}; rounds "
         f"{sdiag['rounds']}, pairs {sdiag['pairs']}")
     log(f"# render path launches: {launches} ({main_s:.2f} s)")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the render path never launched: "
-                             f"{launches}")
+    if (not all(launches[k.name] > 0 for k in render_kernels)
+            or launches[kernels.WIDE_TREELET.name]):
+        raise AssertionError(f"the render path must launch B2 and the walk "
+                             f"and not B1: {launches}")
     launches[kernels.GROUP_BUILD.name] = build_launches[kernels.GROUP_BUILD.name]
     t_ok = torch.isfinite(hit.t)
     if not (n_hits > 0 and hit.t.shape == (R,) and bool((hit.t[t_ok] > 0).all())
@@ -2852,6 +3006,11 @@ def run() -> dict:
     t22 = portal_sort_phase(tree, flat, tris, big_tl, big_rays)
     del big_tl, big_rays
     print(json.dumps({"portal_sort": t22}), flush=True)
+
+    # ---- 23. the portal walk against the pair rounds it replaces -------
+    torch.cuda.empty_cache()
+    t23 = walk_phase()
+    print(json.dumps({"walk": t23}), flush=True)
     one_program = {name: {k: t21[name][k] for k in (
         "hits", "rounds", "sel_cap", "tail_cap", "eager", "eager_launches",
         "capture_launches", "graph_nodes", "steady_ms", "fixed_cost_ms",
@@ -2962,6 +3121,20 @@ def run() -> dict:
             "render; launches in the entry point's render (one an A2 "
             "round)", timing="ms, plain_ms: CUDA events around the call, "
             "median of 21; library_ms: the device's own time, median of 21"),
+        {"name": kernels.WALK.name, "route": "cuda",
+         "source": "bvh_tpu_torch/csrc/wide_treelet.cu",
+         "replaces": "none: the render driver's pair rounds "
+         "(ready_rays, round_pairs, B1 a round, merge_round) on the card",
+         "launches": launches[kernels.WALK.name], "max_abs_err": 0.0,
+         "ms": t23["interior"]["ms"],
+         "plain_ms": t23["interior"]["plain_ms_every_16th"],
+         "bound_ms": t23["interior"]["bound_ms"],
+         "bound_by": t23["interior"]["bound_by"], "library_ms": None,
+         "shape": "the benchmark's 262K box grid, its first interior set "
+         "(phase 23); shadow beside it; plain_ms on every 16th column",
+         "rounds_ms": t23["interior"]["rounds_ms"],
+         "shadow": {k: t23["shadow"][k] for k in (
+             "ms", "rounds_ms", "plain_ms_every_16th", "bound_ms")}},
         tool_entry("T1 traverse_pairs_ablate (B1's variants)",
                    "bvh_tpu_torch/csrc/wide_treelet.cu",
                    "tools/ablate_kernel.py:97",

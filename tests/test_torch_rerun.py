@@ -357,9 +357,10 @@ def test_rerun_equals_one_attempt_on_card(card_scenes, case):
 @pytest.mark.cuda
 def test_262k_interior_frame_launches_and_syncs(card_scenes):
     """The 262K interior cell's 16 ray sets as 16 traced frames, read by
-    the benchmark's own metrics: 673 device operations and 24.75 host
-    syncs a frame, as the whole-frame driver gave them (ledger, PRs 17
-    and 18), since no frame of the cell overflows a cap."""
+    the benchmark's own metrics: 41 device operations and 5 host syncs a
+    frame since the portal walk took over the pair rounds on the card
+    (673 and 24.75 with the rounds; ledger, PRs 17, 18 and 20), since no
+    frame of the cell overflows a cap."""
     from raybench import harness, tracing
     _, tris, bvh, tl = card_scenes("boxgrid_262k")
     spec = harness.load_json(f"{harness.HERE}/traffic/interior.json")
@@ -372,7 +373,7 @@ def test_262k_interior_frame_launches_and_syncs(card_scenes):
     after = trace.counts()
     ctx = {"kind": "render", "trace": tr}
     assert len(tr.spans[tracing.SPAN_FRAME]) == 16
-    assert harness.reader("wide_treelet.launches_per_frame")(ctx) == 673.0
-    assert harness.reader("wide_treelet.syncs_per_frame")(ctx) == 24.75
+    assert harness.reader("wide_treelet.launches_per_frame")(ctx) == 41.0
+    assert harness.reader("wide_treelet.syncs_per_frame")(ctx) == 5.0
     assert after["wide_treelet.rerun_rays"] == before.get(
         "wide_treelet.rerun_rays", 0)

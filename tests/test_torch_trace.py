@@ -271,7 +271,7 @@ def test_spans_add_no_device_operation(scene, monkeypatch):
     frame()                                    # builds the kernels
     with_spans, raw = traced_frame()
     assert not [n for n in raw if n.startswith("bvh.")]
-    assert {"bvh.render", "bvh.b1"} <= {o.name for o in with_spans.host}
+    assert {"bvh.render", "bvh.walk"} <= {o.name for o in with_spans.host}
     monkeypatch.setattr(trace, "on", lambda: False)
     without, _ = traced_frame()
     assert not [o for o in without.host if o.name.startswith("bvh.")]
