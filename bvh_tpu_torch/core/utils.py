@@ -144,7 +144,8 @@ def make_bitmask(bits: int) -> int:
 
 def run_stage(name: str, fn, *args, **kwargs):
     """Run one stage of a staged path, `fn(*args, **kwargs)`: the render
-    (`wide_treelet._render`), the mini-tree build
+    driver (`wide_treelet._attempts`, whose stages `render_at_caps`
+    hands to a profiler's runner), the mini-tree build
     (`minitree_fast.build_minitree_fast`) and a reinsertion iteration
     (`reinsertion._one_iteration`). A profiler passes its own runner in
     its place to time or record each stage by `name`

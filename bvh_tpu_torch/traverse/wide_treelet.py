@@ -27,14 +27,15 @@ each that kernel B1 reads. A render then runs in two phases:
   (`walk_portals`): each ray walks its own sorted list with B1's steps,
   in the rounds' windows of k portals, so its hits are the rounds'.
 
-The entry point's render loop (`_render`) ports what the reference's
-`_render_jit` computes, not its TPU schedule: rays are independent, so
-the TPU's chunking, run padding and DMA windows only schedule work and
-are left out. It reads the ready rays' count on the host every round.
-`_render_fixed` ports `_render_jit`'s fixed-capacity schedule (one
-compaction, round 1, tail rounds at a fixed width) with every shape
-fixed up front, so that `wide_treelet_render_chain` captures the whole
-render as one CUDA graph; its hits equal `_render`'s bit for bit.
+The render driver (`_attempts`, under the entry point and
+`render_at_caps`) ports what the reference's `_render_jit` computes,
+not its TPU schedule: rays are independent, so the TPU's chunking, run
+padding and DMA windows only schedule work and are left out. Its rounds
+read the ready rays' count on the host every round. `_render_fixed`
+ports `_render_jit`'s fixed-capacity schedule (one compaction, round 1,
+tail rounds at a fixed width) with every shape fixed up front, so that
+`wide_treelet_render_chain` captures the whole render as one CUDA graph;
+its hits equal the rounds' bit for bit.
 
 Closest-hit results are exact; among exactly tied primitives the winner
 may differ from another implementation's, because the 8-way sorting
@@ -43,6 +44,7 @@ network is not stable.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -976,8 +978,7 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     f32; portals.tid and .tent themselves), the reference's overflow
     mask (1: more than mps supers, 2: a pair recorded more than
     max_new, 4: a merged list longer than max_portals), and the A2
-    rounds, pairs and B4's stack overflow. While a profiler records,
-    each merge adds 1 to wide_treelet.portal_sorts.
+    rounds, pairs and B4's stack overflow.
 
     `over`: None, or a dict that the render driver passes to learn which
     rays went past a cap. Its "cols", if set, is a bool [Rc] mask of
@@ -1058,7 +1059,6 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
                     over["max_rec"] = max(over["max_rec"], rec)
             fcnt = merge_columns(tid, tent, tlen, rsel, jj, rr, ntid, nt,
                                  stats[0], k2=K2, max_new=max_new)
-            trace.count("wide_treelet.portal_sorts", 1)
             flen = int(fcnt.max())
             if flen > max_portals:
                 bits |= 4
@@ -1124,17 +1124,11 @@ def merge_round(best, tmax, cur, rsel, validk, pk, pr, out_f, out_i, *,
     in place. validk, pk, pr: `round_pairs`' outputs; out_f, out_i:
     kernel B1's on those pairs."""
     bt, bu, bv, bpos = best
-    dev = bt.device
-    f32, i64 = torch.float32, torch.int64
-    Rr = rsel.numel()
-    res_t = torch.full((k, Rr), float("inf"), dtype=f32, device=dev)
-    res_u = torch.zeros((k, Rr), dtype=f32, device=dev)
-    res_v = torch.zeros((k, Rr), dtype=f32, device=dev)
-    res_pos = torch.full((k, Rr), -1, dtype=i64, device=dev)
+    res_t, res_u, res_v, res_pos = _no_hits((k, rsel.numel()), bt.device)
     res_t[pk, pr] = out_f[0]
     res_u[pk, pr] = out_f[1]
     res_v[pk, pr] = out_f[2]
-    res_pos[pk, pr] = out_i[0].to(i64)
+    res_pos[pk, pr] = out_i[0].to(torch.int64)
     n_bt, n_bu, n_bv, n_pos = merge_first_j(
         (bt[rsel], bu[rsel], bv[rsel], bpos[rsel]), validk,
         (res_t, res_u, res_v, res_pos), any_hit=any_hit)
@@ -1164,35 +1158,6 @@ def merge_first_j(best, validk, res, *, any_hit: bool):
     return n_bt, n_bu, n_bv, n_pos
 
 
-def _render(tl: WideTreelets, packed, *, any_hit, robust, top_stack,
-            stack_depth, max_portals, max_rounds, k, collect, traverse,
-            collect_super, sup_stack, mps, max_new, stage=run_stage):
-    """One render at fixed capacities: `_prepare`, then `_pair_rounds`.
-    Returns the per-ray best hit (t, u, v, pos), phase-A counts and the
-    diag: the round count, the overflow observations the caller checks
-    and, under "overflow", None or the bool [R] mask of the rays past a
-    cap, whose outputs are not hits; every other ray keeps its hit. Each
-    stage runs through `stage`: phase_a, portal_sort, phase_a2
-    (two-level scenes), then per round ready, round_pairs, b1 and
-    merge_round."""
-    R = packed.shape[1]
-    portals, rays_c, late, diag = _prepare(
-        tl, packed, robust=robust, top_stack=top_stack,
-        max_portals=max_portals, mps=mps, max_new=max_new,
-        sup_stack=sup_stack, collect=collect, collect_super=collect_super,
-        stage=stage)
-    best, late = _pair_rounds(tl, portals, rays_c, late, diag,
-                              any_hit=any_hit, robust=robust,
-                              stack_depth=stack_depth, max_rounds=max_rounds,
-                              k=k, traverse=traverse, stage=stage)
-    out = _no_hits(R, packed.device)
-    for o, b in zip(out, best):
-        o[portals.sel] = b
-    if late is not None:
-        diag["overflow"] = _spread(diag["overflow"], R, portals.sel, late)
-    return (*out, portals.cnt, diag)
-
-
 def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
              mps, max_new, sup_stack, collect, collect_super, stage):
     """Each ray's portal list: phase A, its ordering and, in two-level
@@ -1214,7 +1179,6 @@ def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
                     max_portals=max_portals)
     portals = stage("portal_sort", sort_portals, *records,
                     split=(tl.table.shape[0], mps) if two_level else None)
-    trace.count("wide_treelet.portal_sorts", 1)
     diag = dict(max_cnt=portals.max_cnt,
                 top_hwm=portals.top_hwm, top_ovf=portals.top_ovf,
                 stack_hwm=0, stack_ovf=False, rounds=0, pairs=0,
@@ -1249,16 +1213,12 @@ def _pair_rounds(tl: WideTreelets, portals: Portals, rays_c, late, diag, *,
     columns past B1's stack or max_rounds set too; diag's rounds,
     pairs, stack_hwm, stack_ovf and pending are updated in place."""
     dev = rays_c.device
-    f32, i64 = torch.float32, torch.int64
     Rc = rays_c.shape[1]
     mp = portals.tid.shape[0]
     octant = octants(rays_c)
     tmax = rays_c[7].clone()
-    bt = torch.full((Rc,), float("inf"), dtype=f32, device=dev)
-    bu = torch.zeros(Rc, dtype=f32, device=dev)
-    bv = torch.zeros(Rc, dtype=f32, device=dev)
-    bpos = torch.full((Rc,), -1, dtype=i64, device=dev)
-    cur = torch.zeros(Rc, dtype=i64, device=dev)
+    bt, bu, bv, bpos = _no_hits((Rc,), dev)
+    cur = torch.zeros(Rc, dtype=torch.int64, device=dev)
     if late is not None:
         cur.masked_fill_(late, mp)             # past its list: never ready
     while True:
@@ -1436,27 +1396,156 @@ def _joined(groups: list):
             torch.cat(dead))
 
 
+class _Reruns:
+    """The render driver's re-run bookkeeping (`_attempts`) over [8, R]
+    packed rays: each attempt's rays, the lists waiting for the tracer,
+    and every ray's t, u, v, pos and phase-A count (`out`, [R] each).
+    What only a re-run does runs in the span bvh.render.rerun, so a
+    render that overflows nothing opens none."""
+
+    def __init__(self, packed):
+        self.every = self.packed = packed   # every ray; this attempt's
+        self.todo = None        # the indices of this attempt's (None: all)
+        self.groups = []        # lists that fit their caps, waiting
+        self.out = _no_hits((packed.shape[1],), packed.device) + [None]
+
+    @staticmethod
+    def _span(rerun: bool):
+        return (trace.span("bvh.render.rerun") if rerun
+                else contextlib.nullcontext())
+
+    def lists(self, portals: Portals, rays_c, late, over, last: bool):
+        """Take an attempt's `_prepare` results. Its lists wait with the
+        lists before while a ray is past a phase-A or A2 cap (`over`, a
+        mask over its rays; `late` over its lists) and another attempt
+        may follow: None. Else every waiting list as one, (portals,
+        rays_c, dead), `dead` None or the mask of the columns to skip."""
+        rerun = self.todo is not None
+        with self._span(rerun):
+            if late is not None:     # past a cap: left to a re-run
+                over = _spread(over, self.packed.shape[1], portals.sel, late)
+            if rerun:
+                self.out[4][self.todo] = portals.cnt
+                portals = portals._replace(sel=self.todo[portals.sel])
+            else:
+                self.out[4] = portals.cnt
+            self.over, self.late = over, None
+            self.groups.append((portals, rays_c, late))
+            if over is not None and not last:
+                return None
+            groups, self.groups = self.groups, []
+            self.joined = len(groups) > 1
+            return _joined(groups) if self.joined else groups[0]
+
+    def scatter(self, sel, best, late, dead) -> None:
+        """Write the traced best hits (t, u, v, pos) back by ray index
+        `sel`, of joined lists each ray's live column only. `late`: the
+        tracer's None or bool [C] mask of the columns past a cap."""
+        self.sel = sel
+        with self._span(self.joined):
+            if self.joined:
+                live = torch.nonzero(~late).squeeze(1)
+                sel, best = sel[live], [b[live] for b in best]
+                late = late & ~dead
+            for o, b in zip(self.out, best):
+                o[sel] = b
+        self.late = late
+
+    def _left(self):
+        """The indices of the rays that the attempt left past a cap."""
+        left = []
+        if self.over is not None:
+            local = torch.nonzero(self.over).squeeze(1)
+            left.append(local if self.todo is None else self.todo[local])
+        if self.late is not None:
+            left.append(self.sel[self.late])
+        return left[0] if len(left) == 1 else torch.cat(left)
+
+    def rerun(self) -> int:
+        """Give the next attempt the rays left past a cap; their count."""
+        with self._span(True):
+            self.todo = self._left()
+            self.packed = self.every[:, self.todo]
+        return self.todo.numel()
+
+    def overflow(self):
+        """The bool [R] mask of the rays left past a cap."""
+        return _spread(None, self.every.shape[1], self._left(), True)
+
+
+def _attempts(tl: WideTreelets, packed, caps: dict, tries: int, *,
+              walk: bool, any_hit, robust, k, collect, traverse,
+              collect_super, stage):
+    """The render driver: at most `tries` attempts at [8, R] packed rays,
+    the first over every ray at `caps`, each later one over the rays the
+    one before left past a cap, at caps raised for them (`_raised_caps`,
+    into `caps`). An attempt runs `_prepare`. While another attempt may
+    follow, lists past a phase-A or A2 cap are left to it and the lists
+    that fit wait (`_Reruns`); once none is past such a cap, or on the
+    last attempt, the lists that fit are traced: by `walk_portals` (the
+    stage "walk") where `walk`, else by `_pair_rounds` over `traverse`,
+    each stage run through `stage`. Rays past B1's stack or the round cap
+    are left to the next attempt.
+    Returns (t, u, v, pos, cnt, diag, total, bumps): each ray's best hit
+    and phase-A count, [R] each; the last attempt's diag, whose
+    "overflow" is None or the bool [R] mask of the rays it left past a
+    cap, whose outputs are not hits; the diags tallied (`_tally`); and
+    the caps the last attempt asks to raise ({} once every ray fits)."""
+    runs = _Reruns(packed)
+    total = {}
+    for attempt in range(tries):
+        last = attempt == tries - 1
+        with trace.span("bvh.render.attempt"):
+            portals, rays_c, late, diag = _prepare(
+                tl, runs.packed, robust=robust, top_stack=caps["top_stack"],
+                max_portals=caps["max_portals"], mps=caps["mps"],
+                max_new=caps["max_new"], sup_stack=caps["sup_stack"],
+                collect=collect, collect_super=collect_super, stage=stage)
+            lists = runs.lists(portals, rays_c, late, diag.pop("overflow"),
+                               last)
+            if lists is not None:
+                portals, rays_c, dead = lists
+                if walk:
+                    best, late = stage(
+                        "walk", walk_portals, tl, portals, rays_c, dead,
+                        diag, any_hit=any_hit, robust=robust,
+                        stack_depth=caps["stack_depth"], k=k)
+                else:
+                    best, late = _pair_rounds(
+                        tl, portals, rays_c, dead, diag, any_hit=any_hit,
+                        robust=robust, stack_depth=caps["stack_depth"],
+                        max_rounds=caps["max_rounds"], k=k,
+                        traverse=traverse, stage=stage)
+                runs.scatter(portals.sel, best, late, dead)
+        _tally(total, diag)
+        bumps = _raised_caps(diag, caps)
+        if not bumps or last:
+            break
+        caps.update(bumps)
+        total["rerun_rays"] += runs.rerun()
+    diag["overflow"] = runs.overflow() if bumps else None
+    return (*runs.out, diag, total, bumps)
+
+
 def render_at_caps(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
                    robust: bool, collect=collect_portals,
                    traverse=traverse_pairs,
                    collect_super=collect_super_pairs, stage=run_stage,
                    k: int | None = None):
-    """`_render` of [8, R] packed rays at the capacities `caps` (the dict
-    that `wide_treelet_intersect_tris(..., return_diag=True)` reports
-    under "caps"), with each stage run through `stage`, expanding `k`
-    portals a ready ray and round (default `portals_per_round(tl)`, at
-    which its hits equal the entry point's; see `portals_per_round`).
-    Returns what `_render` returns; an
-    overflow is reported in the diag (the rays past a cap under
-    "overflow"), not raised."""
-    return _render(
-        tl, packed, any_hit=any_hit, robust=robust,
-        top_stack=caps["top_stack"], stack_depth=caps["stack_depth"],
-        max_portals=caps["max_portals"], max_rounds=caps["max_rounds"],
+    """One attempt of the render driver (`_attempts`) over [8, R] packed
+    rays at the capacities `caps` (as `wide_treelet_intersect_tris(...,
+    return_diag=True)` reports them), traced by `_pair_rounds`' rounds
+    of `k` portals (default `portals_per_round(tl)`, at which its hits
+    equal the entry point's), each stage run through `stage`: the
+    profilers time those stages, which the entry point's walk on the
+    card runs as one launch. Returns (t, u, v, pos, cnt, diag): each
+    ray's best hit and phase-A count, [R] each, and the attempt's diag,
+    whose "overflow" is None or the bool [R] mask of the rays past a
+    cap, whose outputs are not hits. An overflow is not raised."""
+    return _attempts(
+        tl, packed, caps, 1, walk=False, any_hit=any_hit, robust=robust,
         k=portals_per_round(tl) if k is None else k, collect=collect,
-        traverse=traverse, collect_super=collect_super,
-        sup_stack=caps["sup_stack"], mps=caps["mps"],
-        max_new=caps["max_new"], stage=stage)
+        traverse=traverse, collect_super=collect_super, stage=stage)[:6]
 
 
 def wide_treelet_intersect_tris(
@@ -1498,11 +1587,18 @@ def wide_treelet_intersect_tris(
     high-water marks (over every attempt), the attempts, the re-run
     rays and the last attempt's caps, at which one attempt fits every
     ray."""
+    # The one choice of tracer: on the card the entry point walks each
+    # ray's list in one launch (`walk_portals`). Every other caller of the
+    # driver keeps `_pair_rounds`' rounds: `render_at_caps`, whose stages
+    # the profilers time; the chain's eager render, which reads their
+    # rounds and pairs to size its fixed schedule; the plain versions,
+    # which hold the kernels to them; and the CPU.
     return _intersect(tl, rays, prim_ids, collect_portals, traverse_pairs,
                       any_hit=any_hit, robust=robust, top_stack=top_stack,
                       stack_depth=stack_depth, max_portals=max_portals,
                       max_rounds=max_rounds, mps=mps, max_new=max_new,
-                      auto_caps=auto_caps, return_diag=return_diag)
+                      auto_caps=auto_caps, return_diag=return_diag,
+                      walk=rays.org.device.type == "cuda")
 
 
 @trace.spanned("bvh.render")
@@ -1510,7 +1606,7 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
                robust=False, top_stack=None, stack_depth=None,
                max_portals=None, max_rounds=None, mps=None, max_new=None,
                auto_caps=True, return_diag=False,
-               collect_super=collect_super_pairs, k=None):
+               collect_super=collect_super_pairs, k=None, walk=False):
     """`wide_treelet_intersect_tris` with phase A, the pair traversal and
     phase A2 given as `collect`, `traverse` and `collect_super`: the
     kernels' dispatchers, or their plain versions (`collect_portals_ref`,
@@ -1520,125 +1616,39 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     `tl.sup_cols`. `k`: portals a ready ray and round (default
     `portals_per_round(tl)`).
 
-    Where the rays are CUDA tensors, `traverse` is `traverse_pairs` and
-    no `k` is given, the lists are traced by `walk_portals` at k, one
-    launch of the portal walk kernel, run as the stage "walk";
-    otherwise by `_pair_rounds`' rounds of k portals, each stage run
-    through `run_stage` (ready, round_pairs, b1, merge_round), as
-    `wide_treelet_render_chain` needs them to size its fixed schedule.
-    The hits are the same either way.
-    The rounds and pairs that an attempt reports are then the walk's:
-    one round a walk launch, whose pairs are the (ray, treelet) walks it
-    made, so `Hit.stats`' round field counts one a call plus one for
-    each re-run after B1's stack overflowed.
+    The render driver `_attempts` makes at most 8 attempts (one without
+    `auto_caps`), each stage run through `run_stage`. With `walk` it
+    traces by `walk_portals` at k, one launch of the portal walk kernel,
+    else by `_pair_rounds`' rounds over `traverse`; the hits are the
+    same. A walk is one round, whose pairs are the (ray, treelet) walks
+    it made, so `Hit.stats`' round field then counts one a call plus one
+    for each re-run after B1's stack overflowed.
 
     While a torch profiler records, the call is the span bvh.render and
-    each attempt at some caps bvh.render.attempt, and every attempt adds
-    its rounds, pairs and A2 rounds to the `core.trace` counters
-    wide_treelet.*: wide_treelet.rays counts the call's rays and
-    wide_treelet.rerun_rays those of every attempt after the first,
-    whose selection, packing and scatter back are the span
-    bvh.render.rerun."""
-    # on the card the kernels' render walks each ray's list in one launch,
-    # unless the caller asks for rounds of k portals
-    walk = (rays.org.device.type == "cuda" and traverse is traverse_pairs
-            and k is None)
+    adds to the `core.trace` counters wide_treelet.calls (1), .rays,
+    .attempts, .rounds, .pairs, .a2_rounds and .rerun_rays (the rays of
+    every attempt after the first), also when it raises: an overflowed
+    attempt is work done too."""
     if k is None:
         k = portals_per_round(tl)
-    auto = wide_treelet_caps(tl, k)
-    caps = dict(
-        top_stack=top_stack if top_stack is not None else tl.top_depth + 1,
-        stack_depth=(stack_depth if stack_depth is not None
-                     else 7 * tl.wide_depth + 8),
-        max_portals=(max_portals if max_portals is not None
-                     else auto["max_portals"]),
-        max_rounds=(max_rounds if max_rounds is not None
-                    else auto["max_rounds"]),
-        mps=mps if mps is not None else auto["mps"],
-        max_new=max_new if max_new is not None else auto["max_new"],
-        sup_stack=tl.sup_depth + 1,
-    )
+    auto = dict(wide_treelet_caps(tl, k), top_stack=tl.top_depth + 1,
+                stack_depth=7 * tl.wide_depth + 8, sup_stack=tl.sup_depth + 1)
+    given = dict(top_stack=top_stack, stack_depth=stack_depth,
+                 max_portals=max_portals, max_rounds=max_rounds, mps=mps,
+                 max_new=max_new, sup_stack=None)
+    caps = {n: auto[n] if v is None else v for n, v in given.items()}
     packed = pack_rays(rays)
-    R = packed.shape[1]
+    bt, bu, bv, pos, cnt, _, diag, bumps = _attempts(
+        tl, packed, caps, 8 if auto_caps else 1, walk=walk, any_hit=any_hit,
+        robust=robust, k=k, collect=collect, traverse=traverse,
+        collect_super=collect_super, stage=run_stage)
     trace.count("wide_treelet.calls", 1)
-    trace.count("wide_treelet.rays", R)
-    todo = None     # the rays of a re-run attempt (None: every ray)
-    groups = []     # lists that fit their caps, waiting for the rounds
-    out = None      # every ray's t, u, v, pos and phase-A count
-    total = {}
-    for attempt in range(8):
-        with trace.span("bvh.render.attempt"):
-            if todo is None:
-                sub = packed
-            else:
-                with trace.span("bvh.render.rerun"):
-                    sub = packed[:, todo]
-            portals, rays_c, late, diag = _prepare(
-                tl, sub, robust=robust, top_stack=caps["top_stack"],
-                max_portals=caps["max_portals"], mps=caps["mps"],
-                max_new=caps["max_new"], sup_stack=caps["sup_stack"],
-                collect=collect, collect_super=collect_super,
-                stage=run_stage)
-            over = diag.pop("overflow")
-            if out is None:
-                out = _no_hits(R, packed.device) + [portals.cnt]
-            else:
-                with trace.span("bvh.render.rerun"):
-                    out[4][todo] = portals.cnt
-            if late is not None:     # past a cap: left to a re-run
-                over = _spread(over, sub.shape[1], portals.sel, late)
-            if todo is not None:
-                portals = portals._replace(sel=todo[portals.sel])
-            groups.append((portals, rays_c, late))
-            if over is None:
-                # every ray has its list: one round loop over them all
-                dead = None
-                if len(groups) > 1:
-                    with trace.span("bvh.render.rerun"):
-                        portals, rays_c, dead = _joined(groups)
-                groups = []
-                if walk:
-                    best, late = run_stage(
-                        "walk", walk_portals, tl, portals, rays_c, dead,
-                        diag, any_hit=any_hit, robust=robust,
-                        stack_depth=caps["stack_depth"], k=k)
-                else:
-                    best, late = _pair_rounds(
-                        tl, portals, rays_c, dead, diag, any_hit=any_hit,
-                        robust=robust, stack_depth=caps["stack_depth"],
-                        max_rounds=caps["max_rounds"], k=k,
-                        traverse=traverse, stage=run_stage)
-                sel = portals.sel
-                if dead is not None:     # a ray's live column only
-                    with trace.span("bvh.render.rerun"):
-                        live = torch.nonzero(~late).squeeze(1)
-                        sel, best = sel[live], [b[live] for b in best]
-                        late = late & ~dead
-                for o, b in zip(out, best):
-                    o[sel] = b
-        # an overflowed attempt is work done too: every attempt counts
-        trace.count("wide_treelet.attempts", 1)
-        trace.count("wide_treelet.rounds", diag["rounds"])
-        trace.count("wide_treelet.pairs", diag["pairs"])
-        trace.count("wide_treelet.a2_rounds", diag.get("a2_rounds", 0))
-        _tally(total, diag)
-        bumps = _raised_caps(diag, caps)
-        if not bumps:
-            break
-        if not auto_caps or attempt == 7:
-            raise ValueError(f"wide-treelet capacity overflow: {bumps} "
-                             f"needed with caps {caps}")
-        caps.update(bumps)
-        with trace.span("bvh.render.rerun"):
-            if over is None:         # past B1's stack or max_rounds
-                todo = portals.sel[late]
-            else:
-                local = torch.nonzero(over).squeeze(1)
-                todo = local if todo is None else todo[local]
-        total["rerun_rays"] += todo.numel()
-    trace.count("wide_treelet.rerun_rays", total["rerun_rays"])
-    bt, bu, bv, pos, cnt = out
-    diag = total
+    trace.count("wide_treelet.rays", packed.shape[1])
+    for name in ("attempts", "rounds", "pairs", "a2_rounds", "rerun_rays"):
+        trace.count("wide_treelet." + name, diag.get(name, 0))
+    if bumps:
+        raise ValueError(f"wide-treelet capacity overflow: {bumps} "
+                         f"needed with caps {caps}")
 
     missed = pos < 0
     prim_pos = torch.where(missed, INVALID_PRIM_ID, pos)
@@ -1657,13 +1667,13 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
     return hit
 
 
-def _no_hits(R: int, device) -> list:
-    """[t, u, v, pos] of R rays that hit nothing."""
-    return [torch.full((R,), float("inf"), dtype=torch.float32,
+def _no_hits(shape: tuple, device) -> list:
+    """[t, u, v, pos], each of `shape`, of rays that hit nothing."""
+    return [torch.full(shape, float("inf"), dtype=torch.float32,
                        device=device),
-            torch.zeros(R, dtype=torch.float32, device=device),
-            torch.zeros(R, dtype=torch.float32, device=device),
-            torch.full((R,), -1, dtype=torch.int64, device=device)]
+            torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.full(shape, -1, dtype=torch.int64, device=device)]
 
 
 # an attempt's diag entries that add up over a call's attempts, and those
@@ -1677,13 +1687,9 @@ def _tally(total: dict, diag: dict) -> None:
     if not total:
         total.update(diag, attempts=0, rerun_rays=0)
     else:
-        for name in _SUMMED:
-            if name in diag:
-                total[name] += diag[name]
-        for name in _PEAKS:
-            total[name] = max(total[name], diag[name])
-        total.update((name, v) for name, v in diag.items()
-                     if name not in _SUMMED + _PEAKS)
+        for name, v in diag.items():
+            total[name] = (total[name] + v if name in _SUMMED else
+                           max(total[name], v) if name in _PEAKS else v)
     total["attempts"] += 1
 
 
@@ -1795,9 +1801,9 @@ def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
     - A round's pairs are a fixed [k, width] window (`_fixed_round`),
       B1 told their count on the device.
 
-    Every ray goes through the windows of the eager `_render` at the
-    same k, in the same order and with the same tmax; only the round in
-    which a window runs may differ. So t, u, v and pos equal the eager
+    Every ray goes through the windows of the eager rounds
+    (`render_at_caps`) at the same k, in the same order and with the
+    same tmax; only the round in which a window runs may differ. So t, u, v and pos equal the eager
     render's bit for bit whenever no overflow is flagged. A round with
     no ready ray does no useful work.
 
@@ -1811,7 +1817,7 @@ def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
             "(kernel B4) inside it is the next slice, ROADMAP A18 (R2)")
     R = packed.shape[1]
     dev = packed.device
-    f32, i64 = torch.float32, torch.int64
+    i64 = torch.int64
     ptid, ptent, stats = collect(
         tl.top_node_t, packed, tl.top_root, robust=robust,
         stack_depth=caps["top_stack"], max_portals=caps["max_portals"])
@@ -1821,15 +1827,10 @@ def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
     Rc = min(sel_cap, R)
     sel = torch.sort(torch.where(has, lanes, lanes + R)).indices[:Rc]
     tid, tent = sort_columns(ptid, ptent, cnt, sel)
-    trace.count("wide_treelet.portal_sorts", 1)
     rays_c = packed[:, sel]
     octant = octants(rays_c)
-    state = dict(bt=torch.full((Rc,), float("inf"), dtype=f32, device=dev),
-                 bu=torch.zeros(Rc, dtype=f32, device=dev),
-                 bv=torch.zeros(Rc, dtype=f32, device=dev),
-                 bpos=torch.full((Rc,), -1, dtype=i64, device=dev),
-                 tmax=rays_c[7].clone(),
-                 cur=torch.zeros(Rc, dtype=i64, device=dev))
+    state = dict(zip(_STATE, _no_hits((Rc,), dev) + [
+        rays_c[7].clone(), torch.zeros(Rc, dtype=i64, device=dev)]))
     every = torch.arange(Rc, device=dev)
     AC = min(tail_cap, Rc)
     stack_ovf = torch.zeros((), dtype=torch.bool, device=dev)
@@ -1846,17 +1847,13 @@ def _render_fixed(tl: WideTreelets, packed, caps: dict, *, any_hit: bool,
             stack_depth=caps["stack_depth"], traverse=traverse)
     _, ready = ready_mask(tid, tent, state["cur"], state["tmax"],
                           state["bpos"], any_hit=any_hit)
-    out_t = torch.full((R,), float("inf"), dtype=f32, device=dev)
-    out_u = torch.zeros(R, dtype=f32, device=dev)
-    out_v = torch.zeros(R, dtype=f32, device=dev)
-    out_pos = torch.full((R,), -1, dtype=i64, device=dev)
-    for out, name in ((out_t, "bt"), (out_u, "bu"), (out_v, "bv"),
-                      (out_pos, "bpos")):
-        out.index_copy_(0, sel, state[name])
+    out = _no_hits((R,), dev)
+    for o, name in zip(out, _STATE):
+        o.index_copy_(0, sel, state[name])
     flags = torch.stack([x.to(i64) for x in (
         cnt.max(), stats[2].any(), stack_ovf, has.sum(), ready.any(),
         used)])
-    return out_t, out_u, out_v, out_pos, cnt, flags
+    return (*out, cnt, flags)
 
 
 def fixed_overflow(stats, caps: dict, sel_cap: int, rounds: int) -> dict:
@@ -1922,7 +1919,7 @@ class RenderChain:
         self.sel_cap = fixed_kw["sel_cap"]
         self.tail_cap = fixed_kw["tail_cap"]
         self.rounds = fixed_kw["rounds"]
-        self._render = lambda: _render_fixed(tl, packed, caps, **fixed_kw)
+        self._fixed = lambda: _render_fixed(tl, packed, caps, **fixed_kw)
         self._acc = torch.zeros(len(FIXED_STATS), dtype=torch.int64,
                                 device=packed.device)
         self.graph = self.capture_launches = self.graph_nodes = None
@@ -1935,7 +1932,7 @@ class RenderChain:
         The feed subtracts +0.0, which leaves every ray bit for bit as
         it was (-0.0 directions too, where adding would flip them), but
         depends on the render's output (:2379-2396)."""
-        out = self._render()
+        out = self._fixed()
         self.packed.sub_(torch.nan_to_num(out[0].min() * 0.0))
         torch.maximum(self._acc, out[-1], out=self._acc)
         return out[0]

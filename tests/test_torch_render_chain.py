@@ -9,8 +9,9 @@ tables and the file stays within its time: bvh_tpu's own MEDIUM build
 compiles for about 40 s here. bvh_tpu's chain runs once, in interpret
 mode with block=256, top_block=512, and its row is reused.
 
-- `_render_fixed` equals the eager `_render` bit for bit (t, u, v,
-  pos) at the same caps and k, with a tail width that makes rays wait;
+- `_render_fixed` equals the eager rounds (`render_at_caps`) bit for
+  bit (t, u, v, pos) at the same caps and k, with a tail width that
+  makes rays wait;
 - the chain (k = 3) matches bvh_tpu's chain hit for hit under the rule
   of tests/test_wide_treelet.py:40-56, and the port's entry point bit
   for bit; with ray 0 missing (tests/test_wide_treelet.py:196-228); and

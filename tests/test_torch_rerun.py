@@ -18,6 +18,9 @@ some rays: phase A's max_portals and stack, A2's mps (bit 1), max_new
   within the benchmark cells' limits (`raybench/judge.py`);
 - the counter wide_treelet.rerun_rays equals the overflowed rays summed
   over the attempts;
+- one `render_at_caps` at the first attempt's caps reports under
+  "overflow" exactly the rays that the second attempt renders, and
+  every other ray's hit equals the generous attempt's;
 - `auto_caps=False` raises on the first overflow, and no ninth attempt
   is made;
 - a render that overflows nothing makes one attempt, with the stage
@@ -114,6 +117,17 @@ def one_attempt(tl, ray, caps, any_hit):
     return t, u, v, torch.where(pos < 0, INVALID_PRIM_ID, pos)
 
 
+def first_caps(tl, caps):
+    """The caps of the entry point's first attempt: its defaults, with the
+    case's `caps` in their place."""
+    auto = wt.wide_treelet_caps(tl, wt.portals_per_round(tl))
+    return {"top_stack": tl.top_depth + 1,
+            "stack_depth": 7 * tl.wide_depth + 8,
+            "sup_stack": tl.sup_depth + 1,
+            **{k: auto[k] for k in ("max_portals", "max_rounds", "mps",
+                                    "max_new")}, **caps}
+
+
 def assert_same(hit, want):
     for name, a, b in zip(("t", "u", "v", "prim_pos"),
                           (hit.t, hit.u, hit.v, hit.prim_pos), want):
@@ -190,6 +204,9 @@ def test_rerun_equals_one_generous_attempt(world, attempts, level, kind,
     caps = case_caps(world, level, kind, case)
     caps_kw = ("top_stack", "max_portals", "mps", "max_new", "sup_stack")
     want = one_attempt(tl, ray, GENEROUS, any_hit)
+    *at_caps, _, at_diag = wt.render_at_caps(
+        tl, wt.pack_rays(ray), first_caps(tl, caps), any_hit=any_hit,
+        robust=False)
     attempts.clear()
     (hit, diag), delta = counted(lambda: wt.wide_treelet_intersect_tris(
         tl, ray, prim_ids=world["bvh"].prim_ids, any_hit=any_hit,
@@ -206,6 +223,7 @@ def test_rerun_equals_one_generous_attempt(world, attempts, level, kind,
     packed = wt.pack_rays(ray)
     idx = torch.arange(R)
     reruns = 0
+    second = None           # the rays of the second attempt
     for event, nxt in zip(attempts, attempts[1:]):
         if nxt[0] == "rounds":
             assert event[0] == "prepare" and event[4] is None
@@ -217,6 +235,8 @@ def test_rerun_equals_one_generous_attempt(world, attempts, level, kind,
             idx = event[1]
         assert torch.equal(nxt[1], packed[:, idx])
         reruns += idx.numel()
+        if second is None:
+            second = idx
     for a, b in zip(preps, preps[1:]):
         for name, v in b[2].items():
             if name in caps_kw:
@@ -224,6 +244,14 @@ def test_rerun_equals_one_generous_attempt(world, attempts, level, kind,
     assert delta["wide_treelet.rerun_rays"] == reruns == diag["rerun_rays"]
     assert delta["wide_treelet.rays"] == R
     assert delta["wide_treelet.attempts"] == len(preps)
+    # one render_at_caps at the first attempt's caps reports exactly the
+    # rays of the second attempt past a cap, and every other ray's hit
+    over = torch.zeros(R, dtype=torch.bool)
+    over[second] = True
+    assert torch.equal(at_diag["overflow"], over)
+    at_caps[3] = torch.where(at_caps[3] < 0, INVALID_PRIM_ID, at_caps[3])
+    for name, a, b in zip(("t", "u", "v", "prim_pos"), at_caps, want):
+        assert torch.equal(_bits(a)[~over], _bits(b)[~over]), name
 
     numbers = judge.judge(world["tris"], tuple(ray), hit.t, hit.prim_id,
                           any_hit=any_hit)
