@@ -52,90 +52,14 @@
 // the wave already holds every pair), and the same with every slot
 // written when a lane takes its pair (0.076).
 //
-// Exactness: the slab arithmetic, the robust/fast inverse and its
-// 2-ulp pad, near-first descent with `swap = tl0 > tr0`, and the
-// root-is-portal case follow the references step for step. The planes
-// fold with each reference's own min/max: NaN-swallowing
-// robust_max/min in B2 (collect.py:117-118), NaN-propagating
-// jnp.maximum/minimum in B4 (wide_treelet.py:1200-1201, ROADMAP C6, C10).
-// Unlike the references (B2 does not clamp `sp` on a push, ROADMAP C3;
-// B4 clamps it silently, C9), a push onto a full stack drops the
-// bottom entry, keeps `sp` at the capacity and sets a sticky overflow
-// flag; they agree whenever the stack is sized to the region's depth
-// + 1.
+// Exactness, and the walk step both kernels take: collect_step.cuh.
 
-#include "slab.cuh"
+#include "collect_step.cuh"
 
 namespace {
 
-constexpr int kTopStackMax = BVH_TOP_STACK_MAX;  // set by kernels.py
-
-// jnp.maximum / jnp.minimum for B4 in three instructions each, where
-// bvh::nan_max and nan_min take five: NaN in either operand yields NaN,
-// here with the payload of the operand it came from. No NaN distance
-// reaches B4's outputs: a pair records only a box it hits, whose entry
-// distance is a number, and a NaN fails every comparison either way.
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-    return (a < b || a != a) ? a : b;
-}
-
-template <bool NanMinMax>
-__device__ __forceinline__ void slab(const bvh::RayInv& r, const float* b,
-                                     float tmin, float tmax, bool robust,
-                                     float& t0, float& t1) {
-    t0 = tmin;
-    t1 = tmax;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        float tn, tf;
-        bvh::slab_axis(r, i, b[2 * i], b[2 * i + 1], robust, tn, tf);
-        t0 = NanMinMax ? max_nan(tn, t0) : bvh::robust_max(tn, t0);
-        t1 = NanMinMax ? min_nan(tf, t1) : bvh::robust_min(tf, t1);
-    }
-}
-
-// One node step of the collect walk, B2's and B4's: the slab tests of
-// both children of the pair row `row` (boxes in 0-11, the index words as
-// f32 in 12-13), a portal child that the ray enters recorded (left
-// first), then descent near-first with the far child pushed (a push onto
-// a full stack drops the bottom entry and sets the sticky overflow
-// flag). Returns whether it descended; if not, the caller pops.
-template <bool NanMinMax, class Record>
-__device__ __forceinline__ bool collect_step(const bvh::RayInv& ray,
-                                             const float* row, float tmin,
-                                             float tmax, bool robust,
-                                             int* stack, int stack_depth,
-                                             int& sp, int& top, int& ovf,
-                                             Record&& record) {
-    float tl0, tl1, tr0, tr1;
-    slab<NanMinMax>(ray, row, tmin, tmax, robust, tl0, tl1);
-    slab<NanMinMax>(ray, row + 6, tmin, tmax, robust, tr0, tr1);
-    const int idx_l = static_cast<int>(row[12]);
-    const int idx_r = static_cast<int>(row[13]);
-    const bool hit_l = tl0 <= tl1, hit_r = tr0 <= tr1;
-    const bool leaf_l = (idx_l & 15) != 0, leaf_r = (idx_r & 15) != 0;
-    if (hit_l && leaf_l) record(idx_l, tl0);
-    if (hit_r && leaf_r) record(idx_r, tr0);
-    const bool dl = hit_l && !leaf_l, dr = hit_r && !leaf_r;
-    if (dl && dr) {
-        const bool swap = tl0 > tr0;
-        top = swap ? idx_r : idx_l;
-        const int far = swap ? idx_l : idx_r;
-        if (sp < stack_depth) {
-            stack[sp++] = far;
-        } else {
-            for (int k = 0; k + 1 < stack_depth; ++k) stack[k] = stack[k + 1];
-            stack[stack_depth - 1] = far;
-            ovf = 1;
-        }
-    } else if (dl || dr) {
-        top = dl ? idx_l : idx_r;
-    }
-    return dl || dr;
-}
+using bvh::collect_step;
+using bvh::kTopStackMax;
 
 // B2's walk of one ray (lane r of R) over one pair table; records go to
 // ptid/ptent [max_portals, R], stats [3, R] (count, stack high-water
@@ -218,9 +142,8 @@ constexpr int kA2MinBlocks = 8;
 
 // Kernel B4: the walk of pair i (one lane a pair, a warp 32 neighbouring
 // pairs, which `expand_supers` sorts by super) over its super's rows
-// sup_cols[sid[i]] [Ps, 16] from root word 1 << 4. A word it descends to
-// is never a portal (portals are recorded, not entered), so the walk has
-// no root-is-portal step. Records go to their slots as the walk makes
+// sup_cols[sid[i]] [Ps, 16] (`walk_super`, collect_step.cuh, which the
+// super walk shares). Records go to their slots as the walk makes
 // them; once the warp's lanes are done, each lane's unused slots
 // [pcnt, max_new) get -1 and +inf, slot by slot across the warp, so that
 // those writes coalesce.
@@ -244,40 +167,15 @@ collect_pairs_kernel(const float4* __restrict__ sup_cols, int Ps,
     const bvh::RayInv ray = bvh::make_ray_inv(o, d, Robust);
     const float4* table = sup_cols + static_cast<size_t>(sid[i]) * Ps * 4;
 
-    int stack[kTopStackMax];
-    int sp = 0, top = 1 << 4, pcnt = 0, hwm = 0, ovf = 0;
-    bool active = tmin <= tmax;
-    auto record = [&](int word, float t) {
-        if (pcnt < max_new) {
-            ntid[pcnt * L + i] = word >> 4;
-            nt[pcnt * L + i] = t;
-        }
-        ++pcnt;
-    };
-
-    while (active) {
-        // one node step: both children of the pair at `top`, one row
-        const float4* p = table + static_cast<size_t>((top >> 4) >> 1) * 4;
-        float row[16];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-            const float4 q = __ldg(p + v);
-            row[4 * v] = q.x;
-            row[4 * v + 1] = q.y;
-            row[4 * v + 2] = q.z;
-            row[4 * v + 3] = q.w;
-        }
-        const bool descend = collect_step<true>(ray, row, tmin, tmax, Robust,
-                                                stack, stack_depth, sp, top,
-                                                ovf, record);
-        hwm = max(hwm, sp);
-        if (!descend) {
-            if (sp > 0)
-                top = stack[--sp];
-            else
-                active = false;
-        }
-    }
+    int pcnt = 0, ovf = 0;
+    const int hwm = bvh::walk_super<Robust>(
+        table, ray, tmin, tmax, stack_depth, ovf, [&](int word, float t) {
+            if (pcnt < max_new) {
+                ntid[pcnt * L + i] = word >> 4;
+                nt[pcnt * L + i] = t;
+            }
+            ++pcnt;
+        });
     // the unused slots, slot by slot: the warp's lanes write neighbouring
     // words of one slot row together
     for (int k = 0; k < max_new; ++k) {

@@ -44,32 +44,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "portal_key.cuh"
+
 namespace {
+
+using bvh::finite_key;
+using bvh::kInfKey;
+using bvh::pos_inf;
+using bvh::radix_key;
 
 constexpr int kBlock = 128;                 // threads a block: a ray each
 constexpr int kWarps = kBlock / 32;
 constexpr int kCap = 16;                    // records a thread sorts alone
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kInfKey = 0xff800000u;   // key of +inf
-constexpr unsigned kNegInfKey = 0x007fffffu;  // key of -inf
 constexpr unsigned long long kEmpty = ~0ull;
-
-// The float's bits as cub's radix sort orders them: the sign bit set
-// for a positive float, every bit flipped for a negative one; -0.0 takes
-// +0.0's key.
-__device__ __forceinline__ unsigned radix_key(float t) {
-    const unsigned b = __float_as_uint(t);
-    const unsigned k = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-    return k == 0x7fffffffu ? 0x80000000u : k;
-}
-
-__device__ __forceinline__ bool finite_key(unsigned k) {
-    return k > kNegInfKey && k < kInfKey;
-}
-
-__device__ __forceinline__ float pos_inf() {
-    return __int_as_float(0x7f800000);
-}
 
 // A sorted list of at most kCap (key, id, t) in registers: keys are
 // unique (they carry the record's index), empty slots hold kEmpty, -1

@@ -39,14 +39,20 @@ CUDA_SOURCES = [os.path.join(CSRC, "collect.cu"),
                 os.path.join(CSRC, "group_build.cu"),
                 os.path.join(CSRC, "binary_traverse.cu"),
                 os.path.join(CSRC, "probes.cu"),
-                os.path.join(CSRC, "portal_sort.cu")]
-CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh")]
+                os.path.join(CSRC, "portal_sort.cu"),
+                os.path.join(CSRC, "super_walk.cu")]
+CUDA_HEADERS = [os.path.join(CSRC, "slab.cuh"),
+                os.path.join(CSRC, "collect_step.cuh"),
+                os.path.join(CSRC, "portal_key.cuh")]
 # Stack capacities compiled into the kernels; a wrapper raises when
 # asked for a deeper stack.
 TOP_STACK_MAX = 64
 WIDE_STACK_MAX = 256
 BINARY_STACK_MAX = 128
 PROBE_STACK_MAX = 32
+# Records a warp of the super walk stages in shared memory: it walks at
+# most this many over max_new supers at once (32 at max_new 32).
+SUPER_WALK_RECORDS = 1024
 # The 19 comparators of the reference's `_sort8`, in its order, as 6
 # layers of disjoint pairs; kernel T5 is compiled with them (each lane
 # of a ray runs them on the ray's 8 keys).
@@ -76,6 +82,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               f"-DBVH_WIDE_STACK_MAX={WIDE_STACK_MAX}",
               f"-DBVH_BINARY_STACK_MAX={BINARY_STACK_MAX}",
               f"-DBVH_PROBE_STACK_MAX={PROBE_STACK_MAX}",
+              f"-DBVH_SUPER_WALK_RECORDS={SUPER_WALK_RECORDS}",
               *(f"-DBVH_SORT8_LAYER{i}={w:#010x}u"
                 for i, w in enumerate(sort8_partner_words()))]
 
@@ -151,6 +158,12 @@ _SIGNATURES = {
     # max_new, dest (scratch), fcnt, stream
     "bvh_portal_merge": [_VP, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _VP, _VP,
                          _VP, _I, _I, _VP, _VP, _VP],
+    # sup_cols, Ps, sid [mps, Rc], nsup, mps, rays, Rc, tid [MP, Rc] i64,
+    # tent, tlen, MP, gone (or null), robust, stack_depth, max_new,
+    # max_portals, k2, lanes, cols, stats (7 ints, zeroed by the call),
+    # stream
+    "bvh_super_walk": [_VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP, _VP, _I,
+                       _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP],
     # pairs [P, 16], tris [n, 12], rays, R, root_word, any_hit, robust,
     # stack_depth, out_f, out_i, next (the work counter, one int, zero
     # at the launch), steps (or null), stream
@@ -368,13 +381,14 @@ BINARY_TRAVERSE = Kernel("binary_traverse", "bvh_binary_traverse_tris")
 SPHERE_TRAVERSE = Kernel("sphere_traverse", "bvh_sphere_traverse")
 PORTAL_SORT = Kernel("portal_sort", "bvh_portal_sort")
 PORTAL_MERGE = Kernel("portal_merge", "bvh_portal_merge")
+SUPER_WALK = Kernel("walk_supers", "bvh_super_walk")
 # the profiling tools' kernels (bvh_tpu_torch/tools/)
 WIDE_TREELET_ABLATE = Kernel("traverse_pairs_ablate", "bvh_wide_treelet_ablate")
 WIDE_STEP_PROBE = Kernel("wide_step_probe", "bvh_wide_step_probe")
 COLUMN_FETCH = Kernel("column_fetch", "bvh_column_fetch")
 KERNELS = (COLLECT, WIDE_TREELET, WALK, GROUP_BUILD, COLLECT_SUPER,
            BINARY_TRAVERSE, SPHERE_TRAVERSE, PORTAL_SORT, PORTAL_MERGE,
-           WIDE_TREELET_ABLATE,
+           SUPER_WALK, WIDE_TREELET_ABLATE,
            WIDE_STEP_PROBE, COLUMN_FETCH)
 
 

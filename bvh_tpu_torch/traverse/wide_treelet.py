@@ -16,7 +16,10 @@ each that kernel B1 reads. A render then runs in two phases:
   in entry order, into treelet portals through kernel B4
   (`collect_super_pairs`, per (ray, super) pair over that super's pair
   table), merged stably after the ray's other portals by entry t
-  (`expand_supers`);
+  (`expand_supers`). On the card the entry point hands the rounds to one
+  kernel launch instead, the super walk (`walk_supers`): every (ray,
+  super) walk at once, then each ray's records of the rounds it would
+  have run merged once, so its lists are the rounds';
 - pair rounds: each ray's portals are sorted by entry distance, and
   each round expands the next K portals of every ray that is still
   ready into (ray, treelet) pairs, which kernel B1
@@ -56,6 +59,7 @@ from bvh_tpu_torch.core.ray import Ray
 from bvh_tpu_torch.core.types import INVALID_PRIM_ID, Bvh
 from bvh_tpu_torch.core.utils import run_stage
 from bvh_tpu_torch.traverse.collect import (
+    check_super_inputs,
     collect_portals,
     collect_super_pairs,
     slab_inverse,
@@ -1069,6 +1073,143 @@ def expand_supers(tl: WideTreelets, portals: Portals, rays_c, *,
     return tid, tent, bits, diag
 
 
+def walk_supers_plain(tl: WideTreelets, portals: Portals, rays_c, *,
+                      robust: bool, sup_stack: int, mps: int, max_new: int,
+                      max_portals: int, over: dict | None = None):
+    """The super walk's plain version, in its per-column order: every
+    (ray, super) walk of the columns that take an expansion first (one
+    `collect_super_pairs` over all of them: a walk reads only the ray's
+    own tmax, which A2 never lowers, so it does not depend on the
+    rounds), then `expand_supers`' rounds of K2 supers over those walks,
+    each a `merge_columns`, a column retired after the first round past
+    max_new, max_portals or the stack. Takes and returns what
+    `walk_supers` does."""
+    dev = rays_c.device
+    tid, tent, sup = portals.tid, portals.tent, portals.sup
+    Rc = tid.shape[1]
+    max_sup = int(sup.count.max()) if Rc else 0
+    gone = None if over is None else over.get("cols")
+    out = sup.count > mps
+    if gone is not None:
+        out |= gone
+    ss, cc = torch.nonzero((sup.sid >= 0) & ~out[None], as_tuple=True)
+    ntid, nt, stats = collect_super_pairs(
+        tl.sup_cols, sup.sid[ss, cc].contiguous(),
+        rays_c[:, cc].contiguous(), robust=robust, stack_depth=sup_stack,
+        max_new=max_new)
+    bits = 1 if max_sup > mps else 0
+    diag = dict(a2_rounds=1, a2_pairs=0, sup_ovf=False)
+    max_rec = max_len = 0
+    live = ~out
+    for r in range(-(-mps // K2)):
+        pick = torch.nonzero((ss // K2 == r) & live[cc]).squeeze(1)
+        if pick.numel() == 0:
+            break
+        rsel, rr = torch.unique(cc[pick], return_inverse=True)
+        rec = stats[0, pick].contiguous()
+        fcnt = merge_columns(tid, tent, sup.tlen, rsel, ss[pick] - r * K2, rr,
+                             ntid[:, pick].contiguous(),
+                             nt[:, pick].contiguous(), rec, k2=K2,
+                             max_new=max_new)
+        diag["a2_pairs"] += pick.numel()
+        max_rec = max(max_rec, int(rec.max()))
+        max_len = max(max_len, int(fcnt.max()))
+        wide, deep, long = rec > max_new, stats[2, pick] != 0, \
+            fcnt > max_portals
+        bits |= (2 if bool(wide.any()) else 0) | (4 if bool(long.any())
+                                                  else 0)
+        diag["sup_ovf"] |= bool(deep.any())
+        stop = torch.zeros(Rc, dtype=torch.int32, device=dev).index_add_(
+            0, cc[pick], (wide | deep).to(torch.int32)) > 0
+        stop[rsel] |= long
+        live &= ~stop
+        out |= stop
+    if over is not None:
+        over.update(cols=None if gone is None and not bits
+                    and not diag["sup_ovf"] else out,
+                    max_sup=max_sup, max_rec=max_rec, max_len=max_len)
+    return tid, tent, bits, diag
+
+
+def check_super_walk_inputs(tl: WideTreelets, portals: Portals, rays_c,
+                            gone, mps: int, sup_stack: int) -> None:
+    """Raise ValueError unless the super walk's inputs are what its
+    kernel takes: portals split at mps, B4's super rows and stack
+    (`check_super_inputs`), the split's super lists [mps, Rc] int32 and
+    counts [Rc] int32, the treelet lists [MP, Rc] int64 and float32 with
+    their lengths [Rc] int32, [8, Rc] float32 rays and None or a [Rc]
+    bool `gone`, contiguous, on one device."""
+    name = "walk_supers"
+    if portals.sup is None or portals.sup.sid.shape[0] != mps:
+        raise ValueError(f"{name}: the portals must be split at mps "
+                         "(sort_portals(..., split=(T, mps)))")
+    dev = rays_c.device
+    tid, tent, sup = portals.tid, portals.tent, portals.sup
+    MP, Rc = tid.shape if tid.dim() == 2 else (-1, -1)
+    wanted = (("tid", tid, torch.int64, (MP, Rc)),
+              ("tent", tent, torch.float32, (MP, Rc)),
+              ("the super lists", sup.sid, torch.int32,
+               (sup.sid.shape[0], Rc)),
+              ("the super counts", sup.count, torch.int32, (Rc,)),
+              ("tlen", sup.tlen, torch.int32, (Rc,)),
+              ("rays", rays_c, torch.float32, (8, Rc)))
+    if gone is not None:
+        wanted += (("gone", gone, torch.bool, (Rc,)),)
+    for what, t, dtype, shape in wanted:
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{list(shape)} {dtype} tensor on {dev}")
+    check_super_inputs(tl.sup_cols, sup.sid[0], rays_c, sup_stack)
+
+
+def walk_supers(tl: WideTreelets, portals: Portals, rays_c, *,
+                robust: bool, sup_stack: int, mps: int, max_new: int,
+                max_portals: int, over: dict | None = None):
+    """`expand_supers` in one launch: every column's supers expanded and
+    merged into its treelet list at once, with `expand_supers`'
+    outputs (with `over`) bit for bit: the lists, in place, the bits,
+    `over`'s "cols", "max_sup", "max_rec" and "max_len", and the diag's
+    a2_pairs and sup_ovf; a2_rounds is 1, the launch. A column past a
+    cap retires as `expand_supers` retires it with `over`, which the
+    render driver always passes. On CUDA tensors one launch of the super
+    walk kernel (csrc/super_walk.cu) and one host read of its stats row
+    (`expand_supers`' rounds where a round's records would not fit a
+    warp's staging: K2 x max_new past kernels.SUPER_WALK_RECORDS); on CPU
+    tensors its plain version (`walk_supers_plain`). For other inputs it
+    raises."""
+    gone = None if over is None else over.get("cols")
+    check_super_walk_inputs(tl, portals, rays_c, gone, mps, sup_stack)
+    kw = dict(robust=robust, sup_stack=sup_stack, mps=mps, max_new=max_new,
+              max_portals=max_portals, over=over)
+    if rays_c.device.type == "cpu":
+        return walk_supers_plain(tl, portals, rays_c, **kw)
+    if rays_c.device.type != "cuda":
+        raise ValueError(f"walk_supers: unsupported device {rays_c.device}")
+    tid, tent, sup, cols = portals.tid, portals.tent, portals.sup, tl.sup_cols
+    MP, Rc = tid.shape
+    lanes = min(32, kernels.SUPER_WALK_RECORDS // max_new) // K2 * K2
+    if lanes == 0 or MP > 0xffff:
+        return expand_supers(tl, portals, rays_c, **kw)
+    dev = rays_c.device
+    out = torch.empty(Rc, dtype=torch.bool, device=dev)
+    stats = torch.empty(7, dtype=torch.int32, device=dev)
+    kernels.SUPER_WALK.launch(
+        cols.data_ptr(), cols.shape[1], sup.sid.data_ptr(),
+        sup.count.data_ptr(), mps, rays_c.data_ptr(), Rc, tid.data_ptr(),
+        tent.data_ptr(), sup.tlen.data_ptr(), MP,
+        None if gone is None else gone.data_ptr(), int(robust), sup_stack,
+        max_new, max_portals, K2, lanes, out.data_ptr(), stats.data_ptr())
+    _, max_sup, max_rec, max_len, flags, sup_ovf, pairs = stats.tolist()
+    bits = flags | (1 if max_sup > mps else 0)
+    if over is not None:
+        over.update(cols=None if gone is None and not bits and not sup_ovf
+                    else out, max_sup=max_sup, max_rec=max_rec,
+                    max_len=max_len)
+    return tid, tent, bits, dict(a2_rounds=1, a2_pairs=pairs,
+                                 sup_ovf=bool(sup_ovf))
+
+
 def ready_rays(portals: Portals, cur, tmax, bpos, *, any_hit: bool):
     """The rays that take part in the next round: those whose portal at
     the cursor is live (:1551-1561). Entries ascend and tmax only
@@ -1159,7 +1300,8 @@ def merge_first_j(best, validk, res, *, any_hit: bool):
 
 
 def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
-             mps, max_new, sup_stack, collect, collect_super, stage):
+             mps, max_new, sup_stack, collect, collect_super, stage,
+             walk=False):
     """Each ray's portal list: phase A, its ordering and, in two-level
     scenes, phase A2, of [8, R] packed rays. Returns (portals, rays_c,
     late, diag): the lists of the rays that entered a treelet box
@@ -1172,7 +1314,9 @@ def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
     scenes, max_sup, max_rec and max_len (`expand_supers`' `over`). The
     masks are made, without a host read, only once a flag the host
     reads anyway is up, so lists that fit every cap cost no launch and
-    no host read more."""
+    no host read more. With `walk`, phase A2 is `walk_supers` (one
+    launch on the card), else `expand_supers`' rounds over
+    `collect_super`."""
     two_level = tl.sup_cols.shape[0] > 0
     records = stage("phase_a", collect, tl.top_node_t, packed, tl.top_root,
                     robust=robust, stack_depth=top_stack,
@@ -1193,10 +1337,14 @@ def _prepare(tl: WideTreelets, packed, *, robust, top_stack, max_portals,
     rays_c = packed[:, portals.sel]
     if two_level:
         over = dict(cols=late)
-        tid, tent, bits, a2 = stage(
-            "phase_a2", expand_supers, tl, portals, rays_c, robust=robust,
-            sup_stack=sup_stack, mps=mps, max_new=max_new,
-            max_portals=max_portals, collect_super=collect_super, over=over)
+        kw = dict(robust=robust, sup_stack=sup_stack, mps=mps,
+                  max_new=max_new, max_portals=max_portals, over=over)
+        if walk:
+            out = stage("phase_a2", walk_supers, tl, portals, rays_c, **kw)
+        else:
+            out = stage("phase_a2", expand_supers, tl, portals, rays_c,
+                        collect_super=collect_super, **kw)
+        tid, tent, bits, a2 = out
         late = over.pop("cols")
         diag.update(a2, a2_bits=bits, **over)
         portals = portals._replace(tid=tid, tent=tent)
@@ -1479,7 +1627,8 @@ def _attempts(tl: WideTreelets, packed, caps: dict, tries: int, *,
     """The render driver: at most `tries` attempts at [8, R] packed rays,
     the first over every ray at `caps`, each later one over the rays the
     one before left past a cap, at caps raised for them (`_raised_caps`,
-    into `caps`). An attempt runs `_prepare`. While another attempt may
+    into `caps`). An attempt runs `_prepare` (where `walk`, phase A2 by
+    `walk_supers`, else by `expand_supers`). While another attempt may
     follow, lists past a phase-A or A2 cap are left to it and the lists
     that fit wait (`_Reruns`); once none is past such a cap, or on the
     last attempt, the lists that fit are traced: by `walk_portals` (the
@@ -1500,7 +1649,8 @@ def _attempts(tl: WideTreelets, packed, caps: dict, tries: int, *,
                 tl, runs.packed, robust=robust, top_stack=caps["top_stack"],
                 max_portals=caps["max_portals"], mps=caps["mps"],
                 max_new=caps["max_new"], sup_stack=caps["sup_stack"],
-                collect=collect, collect_super=collect_super, stage=stage)
+                collect=collect, collect_super=collect_super, stage=stage,
+                walk=walk)
             lists = runs.lists(portals, rays_c, late, diag.pop("overflow"),
                                last)
             if lists is not None:
@@ -1587,12 +1737,13 @@ def wide_treelet_intersect_tris(
     high-water marks (over every attempt), the attempts, the re-run
     rays and the last attempt's caps, at which one attempt fits every
     ray."""
-    # The one choice of tracer: on the card the entry point walks each
-    # ray's list in one launch (`walk_portals`). Every other caller of the
-    # driver keeps `_pair_rounds`' rounds: `render_at_caps`, whose stages
-    # the profilers time; the chain's eager render, which reads their
-    # rounds and pairs to size its fixed schedule; the plain versions,
-    # which hold the kernels to them; and the CPU.
+    # The one choice of tracer: on the card the entry point expands each
+    # ray's supers in one launch (`walk_supers`) and walks each ray's list
+    # in one launch (`walk_portals`). Every other caller of the driver
+    # keeps the rounds (`expand_supers`, `_pair_rounds`): `render_at_caps`,
+    # whose stages the profilers time; the chain's eager render, which
+    # reads their rounds and pairs to size its fixed schedule; the plain
+    # versions, which hold the kernels to them; and the CPU.
     return _intersect(tl, rays, prim_ids, collect_portals, traverse_pairs,
                       any_hit=any_hit, robust=robust, top_stack=top_stack,
                       stack_depth=stack_depth, max_portals=max_portals,
@@ -1618,17 +1769,21 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
 
     The render driver `_attempts` makes at most 8 attempts (one without
     `auto_caps`), each stage run through `run_stage`. With `walk` it
-    traces by `walk_portals` at k, one launch of the portal walk kernel,
-    else by `_pair_rounds`' rounds over `traverse`; the hits are the
-    same. A walk is one round, whose pairs are the (ray, treelet) walks
-    it made, so `Hit.stats`' round field then counts one a call plus one
-    for each re-run after B1's stack overflowed.
+    expands the supers by `walk_supers` (one launch of the super walk
+    kernel an attempt) and traces by `walk_portals` at k, one launch of
+    the portal walk kernel, else by `expand_supers`' rounds over
+    `collect_super` and `_pair_rounds`' rounds over `traverse`; the hits
+    are the same. A walk is one round, whose pairs are the (ray, treelet)
+    walks it made, so `Hit.stats`' round field then counts one a call
+    plus one for each re-run after B1's stack overflowed; likewise a
+    super walk is one A2 round, whose pairs are its (ray, super) walks.
 
     While a torch profiler records, the call is the span bvh.render and
     adds to the `core.trace` counters wide_treelet.calls (1), .rays,
-    .attempts, .rounds, .pairs, .a2_rounds and .rerun_rays (the rays of
-    every attempt after the first), also when it raises: an overflowed
-    attempt is work done too."""
+    .attempts, .rounds, .pairs, .a2_rounds, .a2_pairs (the (ray, super)
+    walks of A2) and .rerun_rays (the rays of every attempt after the
+    first), also when it raises: an overflowed attempt is work done
+    too."""
     if k is None:
         k = portals_per_round(tl)
     auto = dict(wide_treelet_caps(tl, k), top_stack=tl.top_depth + 1,
@@ -1644,7 +1799,8 @@ def _intersect(tl, rays, prim_ids, collect, traverse, *, any_hit=False,
         collect_super=collect_super, stage=run_stage)
     trace.count("wide_treelet.calls", 1)
     trace.count("wide_treelet.rays", packed.shape[1])
-    for name in ("attempts", "rounds", "pairs", "a2_rounds", "rerun_rays"):
+    for name in ("attempts", "rounds", "pairs", "a2_rounds", "a2_pairs",
+                 "rerun_rays"):
         trace.count("wide_treelet." + name, diag.get(name, 0))
     if bumps:
         raise ValueError(f"wide-treelet capacity overflow: {bumps} "

@@ -853,7 +853,7 @@ def two_level_phase() -> dict:
     if res.path != "wide_treelet" or S == 0:
         raise AssertionError("the San-Miguel-class scene must take the "
                              "two-level wide-treelet render")
-    for k in ("group_build", "collect_portals", "collect_super_pairs",
+    for k in ("group_build", "collect_portals", "walk_supers",
               "walk_portals"):
         if launches[k] == 0:
             raise AssertionError(f"phase c never launched {k}")
@@ -2011,7 +2011,7 @@ def tools_phase(boxes, sc, native_bvh, round1, big_sc, big_tl) -> dict:
         for k, v in per_tool.items():
             total[k] = total.get(k, 0) + v
     for k in (kernels.WALK, kernels.COLLECT, kernels.GROUP_BUILD,
-              kernels.COLLECT_SUPER, kernels.SPHERE_TRAVERSE,
+              kernels.SUPER_WALK, kernels.SPHERE_TRAVERSE,
               kernels.WIDE_TREELET_ABLATE):
         if not total.get(k.name):
             raise AssertionError(f"phase 19 never launched {k.name}")
@@ -2275,12 +2275,148 @@ def walk_phase() -> dict:
         json.dump(res, f, indent=1)
     return res
 
+def super_walk_phase() -> dict:
+    """Phase 24: phase A2 in one launch, the super walk (csrc/super_walk.cu,
+    `walk_supers`), against the rounds it replaces on the card
+    (`expand_supers` over B4 and the portal merge) and its plain version
+    (`walk_supers_plain`: one B4 launch over every pair, then the rounds'
+    merges), on the benchmark's San-Miguel-class box grid at both cuts
+    (`raybench/configs/boxgrid_10m.json` and `boxgrid_10m_cut4096.json`,
+    built as its harness builds them) with the first set of each cell's
+    traffic (interior; diffuse), at the caps of the entry point's first
+    attempt (the scene's). The three leave the same lists, lengths, bits,
+    counts and `over` bit for bit. Each is timed with CUDA events around
+    the call on fresh copies of the lists (median of 21; the rounds read
+    the host three times a round, so their time holds those gaps), with
+    the launches and device operations (a profiler) of a call, and the
+    bound: the rays read once (32 bytes), the super lists and counts and
+    the treelet lists read once, the merged lists written once (12 bytes
+    a slot up to their lengths) and the super tables read once. Results
+    in chiprun_out/phase24.json and a `{"super_walk": ...}` line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bvh_tpu_torch import kernels
+    from bvh_tpu_torch.core.ray import Ray
+    from bvh_tpu_torch.traverse import wide_treelet as wt
+    from raybench import counts, harness, rays as rb_rays, scenes
+
+    t_phase = time.perf_counter()
+    res = {}
+    for cfg, traffic in (("boxgrid_10m", "interior"),
+                         ("boxgrid_10m_cut4096", "diffuse")):
+        config = harness.load_json(
+            os.path.join(HERE, "raybench", "configs", f"{cfg}.json"))
+        tris = scenes.sponza_class(config["n_tris"], config["scene_seed"],
+                                   DEV)
+        _, tl = harness.scene_build(tris, config)
+        spec = harness.load_json(
+            os.path.join(HERE, "raybench", "traffic", f"{traffic}.json"))
+        packed = wt.pack_rays(Ray(*rb_rays.ray_sets(spec["rays"], tris,
+                                                    0)[0]))
+        del tris
+        caps = dict(wt.wide_treelet_caps(tl, wt.portals_per_round(tl)),
+                    sup_stack=tl.sup_depth + 1)
+        portals = wt.collect_and_sort(tl, packed, robust=False,
+                                      top_stack=tl.top_depth + 1,
+                                      max_portals=caps["max_portals"],
+                                      mps=caps["mps"])
+        lists = (portals.tid.clone(), portals.tent.clone(),
+                 portals.sup.tlen.clone())
+        rays_c = packed[:, portals.sel].contiguous()
+        kw = dict(robust=False, sup_stack=caps["sup_stack"], mps=caps["mps"],
+                  max_new=caps["max_new"], max_portals=caps["max_portals"])
+
+        def fresh():
+            return portals._replace(
+                tid=lists[0].clone(), tent=lists[1].clone(),
+                sup=portals.sup._replace(tlen=lists[2].clone()))
+
+        def run(fn, p):
+            over = dict(cols=None)
+            tid, tent, bits_, diag = fn(tl, p, rays_c, over=over, **kw)
+            return (tid, tent, p.sup.tlen), bits_, diag, over
+
+        def timed(fn):
+            times = []
+            for _ in range(21):
+                p = fresh()
+                sync()
+                times.append(events_ms(lambda: run(fn, p))[0])
+                del p
+            return float(np.median(times))
+
+        def device_ops(fn) -> int:
+            """Device operations of one call, from the second of two
+            profiled calls."""
+            for _ in range(2):
+                p = fresh()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    run(fn, p)
+                    sync()
+            return sum(1 for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA)
+
+        outs, launches = {}, {}
+        for name, fn in (("rounds", wt.expand_supers),
+                         ("walk", wt.walk_supers),
+                         ("plain", wt.walk_supers_plain)):
+            kernels.reset_launch_counts()
+            outs[name] = run(fn, fresh())
+            sync()
+            launches[name] = launch_counts()
+        ref = outs["rounds"]
+
+        def equal(o) -> bool:
+            return (same(o[0], ref[0]) and o[1] == ref[1]
+                    and o[2]["a2_pairs"] == ref[2]["a2_pairs"]
+                    and o[2]["sup_ovf"] == ref[2]["sup_ovf"]
+                    and all(o[3][k] == ref[3][k]
+                            for k in ("max_sup", "max_rec", "max_len"))
+                    and (o[3]["cols"] is None) == (ref[3]["cols"] is None)
+                    and (o[3]["cols"] is None
+                         or torch.equal(o[3]["cols"], ref[3]["cols"])))
+
+        Rc = rays_c.shape[1]
+        sup = portals.sup
+        n_sup = int(sup.count.clamp(max=caps["mps"]).sum())
+        b = bound(Rc * (counts.RAY_BYTES + 8) + 4 * n_sup
+                  + 12 * int(lists[2].sum()) + 12 * int(ref[0][2].sum())
+                  + nbytes(tl.sup_cols), 0)
+        res[cfg] = dict(
+            traffic=traffic, caps=caps, rays_with_portals=Rc,
+            supers=n_sup, pairs=ref[2]["a2_pairs"],
+            rounds=ref[2]["a2_rounds"],
+            merged_slots=int(ref[0][2].sum()), bits=ref[1],
+            walk_equal=equal(outs["walk"]), plain_equal=equal(outs["plain"]),
+            ms=timed(wt.walk_supers), rounds_ms=timed(wt.expand_supers),
+            plain_ms=timed(wt.walk_supers_plain), bound_ms=b[0],
+            bound_by=b[1], launches=launches,
+            device_ops={name: device_ops(fn) for name, fn in (
+                ("walk", wt.walk_supers), ("rounds", wt.expand_supers))})
+        log(f"# phase 24, {cfg}: {res[cfg]}")
+        if not (res[cfg]["walk_equal"] and res[cfg]["plain_equal"]
+                and launches["walk"] == {kernels.SUPER_WALK.name: 1}):
+            raise AssertionError(f"phase 24, {cfg}: the super walk differs "
+                                 "from the rounds or its plain version")
+        del tl, portals, lists, outs, rays_c, packed
+        torch.cuda.empty_cache()
+    res.update(seconds=time.perf_counter() - t_phase, card=card_line(),
+               ptxas=kernels.ptxas_figures("super_walk"))
+    with open(os.path.join(OUT_DIR, "phase24.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
 def main_path_launches(tl, rays) -> dict:
     """The entry point's render of `rays` (closest hit, default caps),
     with the launch counts reset just before it: the ordering kernels'
-    launches, and the attempts and A2 rounds that the render's trace
-    counters give (a host-only profiler records them). Raises unless
-    the render sorted once an attempt and merged once an A2 round."""
+    and the super walk's launches, and the attempts and A2 rounds that
+    the render's trace counters give (a host-only profiler records
+    them). Raises unless the render sorted once an attempt and ran one
+    super walk an A2 round (one an attempt in a two-level scene) and no
+    merge."""
     from torch.profiler import ProfilerActivity, profile
 
     from bvh_tpu_torch import kernels
@@ -2297,11 +2433,13 @@ def main_path_launches(tl, rays) -> dict:
     attempts, a2_rounds = (after.get(k, 0) - before.get(k, 0) for k in keys)
     out = dict(portal_sort=kernels.PORTAL_SORT.launches,
                portal_merge=kernels.PORTAL_MERGE.launches,
+               super_walk=kernels.SUPER_WALK.launches,
                attempts=attempts, a2_rounds=a2_rounds)
-    if (out["portal_sort"], out["portal_merge"]) != (attempts, a2_rounds):
+    if (out["portal_sort"], out["super_walk"], out["portal_merge"]) != (
+            attempts, a2_rounds, 0):
         raise AssertionError(f"phase 22: the render's ordering launches "
-                             f"{out} are not one sort an attempt and one "
-                             f"merge an A2 round")
+                             f"{out} are not one sort an attempt, one "
+                             f"super walk an A2 round and no merge")
     return out
 
 
@@ -3011,6 +3149,11 @@ def run() -> dict:
     torch.cuda.empty_cache()
     t23 = walk_phase()
     print(json.dumps({"walk": t23}), flush=True)
+
+    # ---- 24. the super walk against the A2 rounds it replaces ----------
+    torch.cuda.empty_cache()
+    t24 = super_walk_phase()
+    print(json.dumps({"super_walk": t24}), flush=True)
     one_program = {name: {k: t21[name][k] for k in (
         "hits", "rounds", "sel_cap", "tail_cap", "eager", "eager_launches",
         "capture_launches", "graph_nodes", "steady_ms", "fixed_cost_ms",
@@ -3118,8 +3261,8 @@ def run() -> dict:
         ordering_entry(
             kernels.PORTAL_MERGE, t22["10m"]["merge"], t22["10m"]["launches"],
             shape="the first A2 round of phase 13's San-Miguel-class "
-            "render; launches in the entry point's render (one an A2 "
-            "round)", timing="ms, plain_ms: CUDA events around the call, "
+            "render; launches in the entry point's render (none: its A2 is "
+            "the super walk; the rounds run in render_at_caps)", timing="ms, plain_ms: CUDA events around the call, "
             "median of 21; library_ms: the device's own time, median of 21"),
         {"name": kernels.WALK.name, "route": "cuda",
          "source": "bvh_tpu_torch/csrc/wide_treelet.cu",
@@ -3135,6 +3278,22 @@ def run() -> dict:
          "rounds_ms": t23["interior"]["rounds_ms"],
          "shadow": {k: t23["shadow"][k] for k in (
              "ms", "rounds_ms", "plain_ms_every_16th", "bound_ms")}},
+        {"name": kernels.SUPER_WALK.name, "route": "cuda",
+         "source": "bvh_tpu_torch/csrc/super_walk.cu",
+         "replaces": "the A2 rounds of bvh_tpu's _render_jit "
+         "(bvh_tpu/traverse/wide_treelet.py:1740-1873), which the port "
+         "ran from the host (expand_supers: B4 and the portal merge a "
+         "round)", "launches": t22["10m"]["launches"]["super_walk"],
+         "max_abs_err": 0.0, "ms": t24["boxgrid_10m"]["ms"],
+         "plain_ms": t24["boxgrid_10m"]["plain_ms"],
+         "bound_ms": t24["boxgrid_10m"]["bound_ms"],
+         "bound_by": t24["boxgrid_10m"]["bound_by"], "library_ms": None,
+         "shape": "the benchmark's 10M box grid, its first interior set "
+         "at the first attempt's caps (phase 24); the 4,096 cut's first "
+         "diffuse set beside it; launches in phase 22's entry point render",
+         "rounds_ms": t24["boxgrid_10m"]["rounds_ms"],
+         "diffuse": {k: t24["boxgrid_10m_cut4096"][k] for k in (
+             "ms", "rounds_ms", "plain_ms", "bound_ms")}},
         tool_entry("T1 traverse_pairs_ablate (B1's variants)",
                    "bvh_tpu_torch/csrc/wide_treelet.cu",
                    "tools/ablate_kernel.py:97",

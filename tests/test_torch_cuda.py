@@ -635,10 +635,10 @@ def test_collect_super_kernel_single_pair_super(robust):
 def test_two_level_render_equals_plain_render(two_level, any_hit, robust):
     tl, rays, prim_ids = two_level
     kw = dict(any_hit=any_hit, robust=robust)
-    before = kernels.COLLECT_SUPER.launches
+    before = kernels.SUPER_WALK.launches
     got, diag = wt.wide_treelet_intersect_tris(tl, rays, prim_ids,
                                                return_diag=True, **kw)
-    assert kernels.COLLECT_SUPER.launches > before and diag["a2_rounds"] > 0
+    assert kernels.SUPER_WALK.launches > before and diag["a2_rounds"] > 0
     want = wt._intersect(tl, rays, prim_ids, col.collect_portals_ref,
                          wt.traverse_pairs_plain,
                          collect_super=col.collect_super_pairs_plain, **kw)

@@ -144,6 +144,7 @@ def test_on_spans_nest_and_counters_equal_the_diag(scene, any_hit):
                      "wide_treelet.rounds": rounds,
                      "wide_treelet.pairs": diag["pairs"],
                      "wide_treelet.a2_rounds": 0,
+                     "wide_treelet.a2_pairs": 0,
                      "wide_treelet.rays": scene.rays.tmin.shape[0],
                      "wide_treelet.rerun_rays": 0}
     outer = named(spans, "bvh.render")
@@ -296,3 +297,4 @@ def test_portal_sorts_count_every_ordering(scene, levels):
         assert delta["wide_treelet.a2_rounds"] > 0
     assert delta["wide_treelet.attempts"] == diag["attempts"]
     assert delta["wide_treelet.a2_rounds"] == diag.get("a2_rounds", 0)
+    assert delta["wide_treelet.a2_pairs"] == diag.get("a2_pairs", 0)
