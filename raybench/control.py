@@ -33,6 +33,16 @@ def control_numbers(workload: str, seed: int, device="cuda",
     run of `seed` would check."""
     _, _, config, traffic = cell_data or harness.cell(workload)
     check = traffic["check"]
+    any_hit = bool(traffic.get("any_hit", False))
+    if traffic["kind"] == "rebuild":     # each frame against its variant
+        variants, ray_sets, order = harness.rebuild_inputs(
+            config, traffic, seed, device)
+        pick = random.Random(seed).sample(range(len(ray_sets)),
+                                          min(check["frames"], len(ray_sets)))
+        return harness.check_rebuild(
+            [(order[j], j, None, None) for j in pick], ray_sets, variants,
+            traffic, seed, any_hit,
+            answer=lambda tris, sub: intersect.lower_precision(tris, *sub))
     if traffic["kind"] == "build":       # the last variant's scene
         tris = scenes.sponza_class(config["n_tris"], seed, device,
                                    traffic["variants"] - 1)
@@ -44,7 +54,6 @@ def control_numbers(workload: str, seed: int, device="cuda",
     pick = random.Random(seed).sample(range(len(ray_sets)),
                                       min(check["frames"], len(ray_sets)))
     kept = [(k, None, None) for k in pick]
-    any_hit = bool(traffic.get("any_hit", False))
 
     def answer(sub):
         return intersect.lower_precision(tris, *sub)

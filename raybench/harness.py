@@ -13,7 +13,11 @@ picks the loop:
   `torch.cuda.synchronize()`;
 - "build": scene variants made in set-up, then scene builds in a
   closed loop, each on the next variant: the port's `build_default`,
-  then `build_wide_treelets`, synchronised.
+  then `build_wide_treelets`, synchronised;
+- "rebuild": a dynamic scene's frames in a closed loop, one in flight:
+  each frame builds and cuts the next scene variant, as "build" does,
+  then renders its ray set through the new tree, as "render" does, and
+  drops the tree before the next frame builds.
 
 The program is called through its public entries only, with no tuning
 key but the configuration's `build_quality` (`build_default`'s quality:
@@ -172,6 +176,18 @@ def render(tl, bvh, ray, any_hit: bool):
     return hit
 
 
+def cut_levels(tl, config: dict) -> None:
+    """A RuntimeError where the cut's levels are not the configuration's
+    `two_level`."""
+    supers = int(tl.sup_cols.shape[0])
+    if supers == 0 and config.get("two_level"):
+        raise RuntimeError("the configuration states a two-level cut, and "
+                           "the cut has no supers")
+    if supers and not config.get("two_level"):
+        raise RuntimeError(f"the configuration states a one-level cut, and "
+                           f"the cut has {supers} supers")
+
+
 def table_bytes(tl) -> int:
     return sum(x.numel() * x.element_size()
                for x in (tl.top_node_t, tl.table_cols, tl.sup_cols))
@@ -257,12 +273,14 @@ def check_rays(traffic: dict, n_tris: int) -> int:
 
 
 def check_frames(kept, ray_sets, tris, traffic, seed, any_hit,
-                 answer=None):
+                 answer=None, frames=None):
     """The judge's numbers over a seeded sample of rays of each kept
     frame (set index, t, triangle id). `answer(rays)`, if given, stands
-    in for the program: it answers the sampled rays itself."""
+    in for the program: it answers the sampled rays itself. The check's
+    rays are shared by `frames` frames (by default the kept ones)."""
     g = scenes.generator(seed, CHECK_STREAM, tris.device)
-    per = max(1, check_rays(traffic, tris.shape[0]) // max(1, len(kept)))
+    per = max(1, check_rays(traffic, tris.shape[0])
+              // max(1, frames or len(kept)))
     parts = []
     for k, t, prim in kept:
         ray = ray_sets[k]
@@ -344,7 +362,104 @@ def run_build(config, traffic, seed, seconds, trace, device, ctx):
     return numbers
 
 
-LOOPS = {"render": run_render, "build": run_build}
+def rebuild_inputs(config, traffic, seed, device):
+    """(variants, ray_sets, order) of a rebuild cell: the configuration's
+    `variants` scenes, drawn from its `scene_seed` so that every run
+    builds the same ones; the traffic's ray sets in the order the seed's
+    frames visit them; and `order[j]`, the variant that ray set j is
+    traced through. The k-th variant goes with the k-th ray set, and the
+    seed orders the pairs. The sets are drawn over variant 0's scene:
+    pinhole poses depend only on the grid side, which every variant
+    shares."""
+    count = int(traffic["variants"])
+    variants = [scenes.sponza_class(config["n_tris"], config["scene_seed"],
+                                    device, v) for v in range(count)]
+    ray_sets = rays.ray_sets(traffic["rays"], variants[0], seed)
+    if len(ray_sets) != count:
+        raise ValueError(f"traffic {traffic.get('name')!r}: {count} "
+                         f"variants and {len(ray_sets)} ray sets; a "
+                         f"rebuild pairs each variant with one set")
+    return variants, ray_sets, rays.in_order(list(range(count)), seed)
+
+
+def check_rebuild(kept, ray_sets, variants, traffic, seed, any_hit,
+                  answer=None):
+    """`check_frames` over the kept frames (variant, set index, t,
+    triangle id), each judged against its own variant's triangles, one
+    variant at a time, merged. `answer(tris, rays)`, if given, stands in
+    for the program."""
+    parts = []
+    for v in sorted({item[0] for item in kept}):
+        tris = variants[v]
+        mine = [item[1:] for item in kept if item[0] == v]
+        own = None if answer is None else (
+            lambda sub, tris=tris: answer(tris, sub))
+        parts.append(check_frames(mine, ray_sets, tris, traffic, seed,
+                                  any_hit, answer=own, frames=len(kept)))
+    return judge.merge(parts)
+
+
+def run_rebuild(config, traffic, seed, seconds, trace, device, ctx):
+    from torch.profiler import record_function
+
+    variants, ray_sets, order = rebuild_inputs(config, traffic, seed,
+                                               device)
+    any_hit = bool(traffic["any_hit"])
+    stage(ctx, "scenes and rays")
+    last = {}
+
+    def frame(j, spans=None):
+        last.clear()           # the previous frame's tree goes first
+        with record_function(tracing.SPAN_REBUILD):
+            bvh, tl = scene_build(variants[order[j]], config, spans)
+            cut_levels(tl, config)
+            t0 = time.perf_counter()
+            hit = render(tl, bvh, ray_sets[j], any_hit)
+        if spans is not None:
+            spans[tracing.SPAN_FRAME].append(time.perf_counter() - t0)
+        last.update(v=order[j], bvh=bvh)
+        return hit
+
+    frame(len(ray_sets) - 1)                   # warm up: one whole frame
+    stage(ctx, "warm-up")
+    ctx["setup_s"] = time.perf_counter() - ctx["t0"]
+
+    def step(i, spans):
+        j = i % len(ray_sets)
+        hit = frame(j, spans)
+        return ray_sets[j][0].shape[0], (order[j], j, hit.t, hit.prim_id)
+
+    win = Window(traffic["check"]["frames"], seed)
+    measure(step, win, traffic, seconds, trace, ctx)
+    ctx["memory_peak_bytes"] = peak_memory(device)
+    ctx.update(durations=win.durations, done=win.work, failed=win.failed)
+    numbers = {"tree_bad_prims": 0, "tree_bad_boxes": 0}
+    if last:                                   # the last frame's tree
+        bvh = last.pop("bvh")
+        numbers = tree_check.check_tree(bvh.bounds, bvh.index, bvh.prim_ids,
+                                        int(bvh.node_count),
+                                        variants[last["v"]])
+        del bvh
+    release(device)
+    numbers.update(check_rebuild(win.kept, ray_sets, variants, traffic,
+                                 seed, any_hit))
+    return numbers
+
+
+LOOPS = {"render": run_render, "build": run_build, "rebuild": run_rebuild}
+# the span whose window a trace run's busy seconds and breakdown cover
+BUSY_SPAN = {"render": tracing.SPAN_FRAME, "build": tracing.SPAN_SCENE,
+             "rebuild": tracing.SPAN_REBUILD}
+
+
+def loop_of(traffic: dict):
+    """The loop of the traffic's `kind`; a ValueError that names it if
+    there is none."""
+    kind = traffic.get("kind")
+    if kind not in LOOPS:
+        raise ValueError(f"traffic {traffic.get('name')!r}: kind {kind!r} "
+                         f"is not one of {', '.join(LOOPS)}")
+    return LOOPS[kind]
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -357,13 +472,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
            "spans": {}}
     manifest, wl, config, traffic = cell_data or cell(workload)
     build_quality(config)                      # refused before any build
+    run = loop_of(traffic)
     ctx.update(kind=traffic["kind"], config=config, traffic=traffic)
     stage(ctx, "start")
     import bvh_tpu_torch.build.default  # noqa: F401 - the program's import
     import bvh_tpu_torch.traverse.wide_treelet  # noqa: F401
     stage(ctx, "program import")
-    numbers = LOOPS[traffic["kind"]](config, traffic, seed, seconds, trace,
-                                     device, ctx)
+    numbers = run(config, traffic, seed, seconds, trace, device, ctx)
     limits = traffic["check"]["limits"]
     correct = judge.verdict(numbers, limits) and ctx["failed"] == 0
     cuda = torch.device(device).type == "cuda"
@@ -379,8 +494,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     out = {"correct": correct, "attempted": len(ctx["durations"]),
            "failed": ctx["failed"], "metrics": metrics, "device": dev}
     if trace:
-        span = (tracing.SPAN_FRAME if traffic["kind"] == "render"
-                else tracing.SPAN_SCENE)
+        span = BUSY_SPAN[traffic["kind"]]
         bw = tracing.busy_window(ctx["trace"], span)
         dev["busy_s"], dev["window_s"] = bw if bw else (0.0, 0.0)
         out["breakdown"] = tracing.breakdown(ctx["trace"], span)

@@ -52,6 +52,9 @@ def cut(manifest, wl, config, traffic):
         traffic["trace"]["plain_steps"] = 2
     if "variants" in traffic:
         traffic["variants"] = 2
+    if traffic["kind"] == "rebuild":     # one ray set a variant
+        spec = traffic["rays"]
+        spec["poses" if spec["kind"] == "pinhole" else "sets"] = 2
     return manifest, wl, config, traffic
 
 

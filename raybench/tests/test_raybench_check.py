@@ -239,7 +239,8 @@ def test_cells_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for workload in ("boxgrid_262k.interior", "boxgrid_262k.build_high",
-                     "boxgrid_262k.shadow", "boxgrid_262k.diffuse"):
+                     "boxgrid_262k.shadow", "boxgrid_262k.diffuse",
+                     "boxgrid_262k_low.rebuild"):
         out = harness.run_cell(workload, 3, 0.5, True, "cuda",
                                cell_data=tiny_any(workload))
         assert out["correct"], (workload, out["check"])

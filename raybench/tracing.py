@@ -2,10 +2,12 @@
 numbers the per-layer metrics read.
 
 The benchmark marks its own calls into the program with
-`torch.profiler.record_function` spans (`SPAN_*` below); the program
-itself carries no spans. A `Trace` holds the spans by name, the device
-operations (kernels, copies and sets), and the host's runtime calls,
-all on the profiler's one clock, in microseconds.
+`torch.profiler.record_function` spans (`SPAN_*` below). The program
+records spans of its own inside those calls while a profiler records
+(`bvh_tpu_torch/core/trace.py`); `program_trace.py` reads them. A
+`Trace` holds the benchmark's spans by name, the device operations
+(kernels, copies and sets), and the host's other events (the program's
+spans among them), all on the profiler's one clock, in microseconds.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ SPAN_RENDER = "raybench.render"        # the render call alone
 SPAN_SCENE = "raybench.scene_build"    # one scene build, synchronised
 SPAN_TREE = "raybench.build_default"   # build_default, synchronised
 SPAN_CUT = "raybench.build_wide_treelets"
+SPAN_REBUILD = "raybench.rebuild_frame"  # a rebuild: build, cut, render
 # host runtime calls that block until the device catches up
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
